@@ -1,0 +1,345 @@
+"""Blocked stack inference: the whole per-slice pipeline over B slices.
+
+Each block of B slices runs, on the device and without host
+synchronization: normalize -> model forward -> softmax/sigmoid ->
+z-median (the window crosses block boundaries through carried device
+state) -> center NMS -> pixel grouping (ONE kernel launch per block) ->
+coarse panoptic merge -> foreground run extraction. The block leaves
+the device as one packed int32 buffer (B, 1 + max_runs, 3) whose header
+row is (n_runs, oh, ow); the copy to the host is started at dispatch
+time (pinned buffer + CUDA event), so up to ``pipeline_depth`` blocks
+stay in flight while the host matches earlier ones.
+
+Emission semantics match the JAX engine exactly: slice z gets the window
+median for mid <= z < n - mid and its raw map at the stack edges.
+Maps and run coordinates stay on the factor-padded grid; the header
+carries the true crop for the host rebase (rle.unpack_packed_runs).
+"""
+
+from __future__ import annotations
+
+import math
+from collections import deque
+from concurrent.futures import ThreadPoolExecutor
+
+import numpy as np
+import torch
+
+from empanada_torch.device import resolve_device
+from empanada_torch.ops.postprocess import (
+    find_instance_centers,
+    group_pixels,
+    harden_semantic,
+    logits_to_prob,
+    median_small,
+    merge_semantic_and_instance,
+    merge_semantic_and_instance_coarse,
+    thing_table,
+)
+from empanada_torch.ops.resize import factor_pad
+from empanada_torch.ops.rle_device import extract_fg_runs
+
+__all__ = ["FusedStackEngine"]
+
+
+class _HostPacked:
+    """A block's packed buffer on its way to the host: ``np.asarray``
+    waits for the copy (CUDA event) and returns the (B, 1+R, 3) array."""
+
+    def __init__(self, host, event=None):
+        self._host = host
+        self._event = event
+
+    def __array__(self, dtype=None, copy=None):
+        if self._event is not None:
+            self._event.synchronize()
+            self._event = None
+        arr = self._host.numpy()
+        return arr if dtype is None else arr.astype(dtype)
+
+
+class _DeviceMaps:
+    """A block's (B, ph, pw) pan maps left on the device. Consumers touch
+    them only on run-budget overflow; indexing pulls one slice."""
+
+    def __init__(self, maps):
+        self._maps = maps
+
+    @property
+    def shape(self):
+        return tuple(self._maps.shape)
+
+    def __len__(self):
+        return self._maps.shape[0]
+
+    def __getitem__(self, j):
+        return self._maps[j].cpu().numpy()
+
+    def __array__(self, dtype=None, copy=None):
+        arr = self._maps.cpu().numpy()
+        return arr if dtype is None else arr.astype(dtype)
+
+
+class FusedStackEngine:
+    """Blocked, fused 3D stack inference engine (streaming path).
+
+    ``module``: an ``nn.Module`` honoring the engine contract — called as
+    ``module(x, render_steps=, interpolate_ins=)`` on (B, 1, H, W)
+    float32 images, it returns NCHW ``sem_logits`` at H*2^(render_steps-2)
+    and ``ctr_hmp``/``offsets`` at 1/4 resolution when coarse.
+    ``variables``: None, or a state_dict loaded into ``module``.
+    ``device_norms=(mean, std)`` or {"mean", "std"}: normalize on the
+    device, ((x/255 - mean)/std) with the factor-pad ring re-zeroed; feed
+    RAW (e.g. uint8) slices. ``device``: CUDA unless named (raises
+    without a card when none is named).
+
+    ``infer_blocks(dataset)`` yields (z_indices, pan_block, packed) per
+    block; ``packed`` converts with ``np.asarray`` to the (B, 1+R, 3)
+    int32 buffer, ``pan_block`` holds the padded (B, ph, pw) maps.
+    """
+
+    def __init__(self, module, variables, thing_list, block_size=None,
+                 label_divisor=1000, stuff_area=64, void_label=0,
+                 nms_threshold=0.1, nms_kernel=7, confidence_thr=0.5,
+                 median_kernel_size=3, padding_factor=128,
+                 coarse_boundaries=True, max_centers=256,
+                 num_classes=None, max_runs=None, device_norms=None,
+                 pipeline_depth=2, device=None):
+        assert median_kernel_size % 2 == 1
+        self.device = resolve_device(device)
+        if variables:
+            module.load_state_dict(variables)
+        self.module = module.to(self.device).eval()
+        self.thing_list = list(thing_list)
+        self.block_size = block_size
+        self.label_divisor = label_divisor
+        self.stuff_area = stuff_area
+        self.void_label = void_label
+        self.nms_threshold = nms_threshold
+        self.nms_kernel = nms_kernel
+        self.confidence_thr = confidence_thr
+        self.ks = median_kernel_size
+        self.mid = (median_kernel_size - 1) // 2
+        self.padding_factor = padding_factor
+        self.coarse_boundaries = coarse_boundaries
+        self.max_centers = max_centers
+        self.max_runs = max_runs
+        self.device_norms = device_norms
+        self.pipeline_depth = int(pipeline_depth)
+        self.last_dispatch_count = 0  # blocks run in the last pass
+        self._num_classes = num_classes
+
+    # -----------------------------------------------------------------
+
+    def _resolve_block(self, pad_shape, n):
+        """Slices per block for this slice shape: the explicit setting
+        if given, else ~8 512^2-slices of pixels per block (rounded to a
+        multiple of 8, at most 64), clamped to the stack length."""
+        if self.block_size is not None:
+            return self.block_size
+        ph, pw = pad_shape
+        B = 8 * (512 * 512) / max(ph * pw, 1)
+        B = max(8, min(64, round(B / 8) * 8))
+        need = n + self.mid
+        if B > need:
+            B = min(B, -(-need // 8) * 8)
+        return B
+
+    def _auto_max_runs(self, H, W):
+        """Packed-run budget for a padded slice of H x W (sem res): an
+        instance-count term (~one run per row an instance spans) and an
+        area term H*W/16 for dense content."""
+        return max(4096, 8 * H, max(24, H // 21) * self.max_centers,
+                   (H * W) // 16)
+
+    def _norms(self):
+        norms = self.device_norms
+        if norms is None:
+            return None
+        mean = float(norms["mean"] if isinstance(norms, dict) else norms[0])
+        std = float(norms["std"] if isinstance(norms, dict) else norms[1])
+        return mean, std
+
+    def _pad_mask(self, crop, pad_shape, upsampling):
+        """(ph, pw) float mask of the true image area (None when the
+        slice needs no padding)."""
+        oh, ow = crop
+        ph, pw = pad_shape
+        ny = -(-oh // upsampling)
+        nx = -(-ow // upsampling)
+        if ny >= ph and nx >= pw:
+            return None
+        ring = torch.zeros((ph, pw), dtype=torch.float32)
+        ring[:min(ny, ph), :min(nx, pw)] = 1.0
+        return ring.to(self.device)
+
+    def _postprocess(self, sem_prob, ctr, off, num_classes, upsampling,
+                     max_runs, crop, table):
+        """(B, C, H, W) probs, (B, h4, w4) centers, (B, h4, w4, 2)
+        offsets -> (B, H, W) pan maps and (B, 1+max_runs, 3) packed."""
+        step = 4 if self.coarse_boundaries else 1
+        scale = step * upsampling
+        oh, ow = crop
+        centers, valid = find_instance_centers(
+            ctr, self.nms_threshold, self.nms_kernel, self.max_centers)
+        ins = group_pixels(centers, valid, off, step=float(step))
+        ins = torch.where(valid.any(dim=1)[:, None, None], ins,
+                          torch.zeros_like(ins))
+        sem = harden_semantic(sem_prob, self.confidence_thr)
+        if scale > 1:
+            pan = merge_semantic_and_instance_coarse(
+                sem, ins, scale, self.label_divisor, table,
+                self.stuff_area, self.void_label, self.max_centers,
+                num_classes)
+        else:
+            pan = merge_semantic_and_instance(
+                sem, ins, self.label_divisor, table, self.stuff_area,
+                self.void_label, self.max_centers, num_classes)
+        b, H, W = pan.shape
+        if (H, W) != (oh, ow):
+            # stay on the padded grid; zero the margin so it adds no runs
+            rows = torch.arange(H, device=pan.device)[:, None] < oh
+            cols = torch.arange(W, device=pan.device)[None, :] < ow
+            pan = torch.where(rows & cols, pan, torch.zeros_like(pan))
+        starts, ends, values, n_runs = extract_fg_runs(pan, max_runs)
+        header = torch.stack([n_runs, torch.full_like(n_runs, oh),
+                              torch.full_like(n_runs, ow)], dim=1)
+        packed = torch.cat([header[:, None],
+                            torch.stack([starts, ends, values], dim=-1)],
+                           dim=1)
+        return pan, packed
+
+    def _to_host(self, packed):
+        """Start the block's one device->host copy; returns _HostPacked."""
+        if packed.device.type != "cuda":
+            return _HostPacked(packed)
+        host = torch.empty(packed.shape, dtype=packed.dtype,
+                           pin_memory=True)
+        host.copy_(packed, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record()
+        return _HostPacked(host, event)
+
+    # -----------------------------------------------------------------
+
+    @torch.inference_mode()
+    def infer_blocks(self, dataset, upsampling=1):
+        assert math.log2(upsampling).is_integer()
+        render_steps = int(2 + math.log2(upsampling))
+        ks, mid = self.ks, self.mid
+        n = len(dataset)
+        dev = self.device
+
+        ex0 = dataset[0]
+        img0 = np.asarray(ex0["image"])
+        if self.device_norms is None and img0.dtype != np.float32:
+            img0 = img0.astype(np.float32)
+        ph = (-img0.shape[0]) % self.padding_factor + img0.shape[0]
+        pw = (-img0.shape[1]) % self.padding_factor + img0.shape[1]
+        B = self._resolve_block((ph, pw), n)
+        H, W = ph * upsampling, pw * upsampling  # sem resolution
+        if self._num_classes is None:
+            self._num_classes = max(
+                int(getattr(self.module, "num_classes", 1)),
+                (max(self.thing_list) + 1) if self.thing_list else 1, 2)
+        num_classes = self._num_classes
+        max_runs = self.max_runs or self._auto_max_runs(H, W)
+        crop = tuple(int(s) for s in ex0["size"])
+        norms = self._norms()
+        pad_mask = (self._pad_mask(crop, (ph, pw), upsampling)
+                    if norms is not None else None)
+        table = thing_table(self.thing_list, num_classes, dev)
+
+        n_sem_ch = getattr(self.module, "num_classes", 1)
+        h4 = ph // 4 if self.coarse_boundaries else ph
+        w4 = pw // 4 if self.coarse_boundaries else pw
+        carry_sem = torch.zeros((ks - 1, n_sem_ch, H, W), device=dev)
+        carry_ctr = torch.zeros((mid, h4, w4), device=dev)
+        carry_off = torch.zeros((mid, h4, w4, 2), device=dev)
+
+        # emit z = block_start + j - mid; block starts cover [0, n + mid)
+        block_starts = list(range(0, n + mid, B))
+
+        def load_block(block_start):
+            """Read + pad one block of slices on a prefetch thread."""
+            images, use_median = [], []
+            for j in range(B):
+                src = block_start + j
+                if src < n:
+                    ex = dataset[src] if src != 0 else ex0
+                    img = np.asarray(ex["image"])
+                    if self.device_norms is None \
+                            and img.dtype != np.float32:
+                        img = img.astype(np.float32)
+                else:
+                    img = np.zeros_like(img0)
+                images.append(img)
+                z = block_start + j - mid
+                use_median.append(mid <= z < n - mid)
+            batch, _ = factor_pad(np.stack(images), self.padding_factor)
+            batch = torch.from_numpy(np.ascontiguousarray(batch))
+            use_median = torch.tensor(use_median)
+            if dev.type == "cuda":  # async uploads need pinned buffers
+                batch = batch.pin_memory()
+                use_median = use_median.pin_memory()
+            return batch, use_median
+
+        depth = max(self.pipeline_depth, 0)
+        pool = ThreadPoolExecutor(max_workers=1)
+        load_futs = {}
+        prefetch = depth + 2
+
+        def ensure_loads(upto):
+            for k in range(min(upto, len(block_starts))):
+                if k not in load_futs:
+                    load_futs[k] = pool.submit(load_block, block_starts[k])
+
+        ensure_loads(prefetch)
+        inflight = deque()
+        self.last_dispatch_count = 0
+        try:
+            for bi, block_start in enumerate(block_starts):
+                batch, use_median = load_futs.pop(bi).result()
+                ensure_loads(bi + 1 + prefetch)
+                x = batch.to(dev, non_blocking=True)[:, None].float()
+                if norms is not None:
+                    x = (x / 255.0 - norms[0]) / norms[1]
+                    if pad_mask is not None:
+                        x = x * pad_mask
+                out = self.module(x, render_steps=render_steps,
+                                  interpolate_ins=not self.coarse_boundaries)
+                sem = logits_to_prob(out["sem_logits"].float())
+                ctr = out["ctr_hmp"][:, 0].float()
+                off = out["offsets"].permute(0, 2, 3, 1).float()
+
+                allsem = torch.cat([carry_sem, sem], dim=0)
+                allctr = torch.cat([carry_ctr, ctr], dim=0)
+                alloff = torch.cat([carry_off, off], dim=0)
+                # window j = allsem[j : j+ks]; emitted slice sits at j+mid
+                win = allsem.unfold(0, ks, 1)[:B]      # (B, C, H, W, ks)
+                med = median_small(win, dim=-1)
+                raw = allsem[mid:mid + B]
+                um = use_median.to(dev, non_blocking=True)
+                emit_sem = torch.where(um[:, None, None, None], med, raw)
+
+                pan, packed = self._postprocess(
+                    emit_sem, allctr[:B], alloff[:B].contiguous(),
+                    num_classes, upsampling, max_runs, crop, table)
+                carry_sem = allsem[allsem.shape[0] - (ks - 1):]
+                carry_ctr = allctr[allctr.shape[0] - mid:]
+                carry_off = alloff[alloff.shape[0] - mid:]
+                self.last_dispatch_count += 1
+
+                z_indices = [block_start + j - mid
+                             if 0 <= block_start + j - mid < n else None
+                             for j in range(B)]
+                inflight.append((z_indices, _DeviceMaps(pan),
+                                 self._to_host(packed)))
+                while len(inflight) > depth:
+                    yield inflight.popleft()
+                if block_start + B - mid >= n:
+                    break
+            while inflight:
+                yield inflight.popleft()
+        finally:
+            pool.shutdown(wait=False, cancel_futures=True)

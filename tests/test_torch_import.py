@@ -1,0 +1,107 @@
+"""The port stands alone: empanada_torch and chip_smoke.py import nothing
+of JAX or the JAX package, entry points never fall back to the CPU on
+their own, and the CUDA kernel path is taken only for CUDA tensors."""
+
+import pkgutil
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import empanada_torch
+from empanada_torch.ops import group
+
+ROOT = Path(__file__).resolve().parents[1]
+BLOCKED = ("jax", "flax", "optax", "empanada_tpu")
+
+
+def _port_sources():
+    return sorted((ROOT / "empanada_torch").rglob("*.py")) + [
+        ROOT / "chip_smoke.py"]
+
+
+def test_every_module_imports_with_jax_blocked():
+    names = [m.name for m in pkgutil.walk_packages(
+        empanada_torch.__path__, "empanada_torch.")]
+    assert "empanada_torch.inference.fused" in names
+    code = (
+        "import sys\n"
+        f"for name in {BLOCKED!r}:\n"
+        "    sys.modules[name] = None\n"
+        "import importlib\n"
+        f"for name in {['empanada_torch'] + names!r}:\n"
+        "    importlib.import_module(name)\n"
+        "import chip_smoke\n"
+        f"assert not any(m.split('.')[0] in {BLOCKED!r} and sys.modules[m]"
+        " for m in list(sys.modules))\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_sources_never_import_jax_or_the_jax_package():
+    pattern = re.compile(
+        r"^\s*(import|from)\s+(" + "|".join(BLOCKED) + r")\b", re.M)
+    offenders = [str(p.relative_to(ROOT)) for p in _port_sources()
+                 if pattern.search(p.read_text())]
+    assert offenders == []
+
+
+def test_entry_points_raise_without_cuda(monkeypatch):
+    from empanada_torch.cli.infer3d import run_inference3d
+    from empanada_torch.inference.fused import FusedStackEngine
+    from empanada_torch.models import create_model
+    from empanada_torch.synthetic import SyntheticModule
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        create_model("PanopticBiFPNPR", encoder="regnety_200mf",
+                     fpn_layers=1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        FusedStackEngine(SyntheticModule(), None, [1])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run_inference3d(SyntheticModule(), np.zeros((4, 16, 16), np.float32),
+                        labels=[1], thing_list=[1], mode="stack")
+
+
+def test_parity_numerics_disable_tf32():
+    from empanada_torch.device import resolve_device
+
+    assert resolve_device("cpu") == torch.device("cpu")
+    assert torch.backends.cudnn.allow_tf32 is False
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+
+
+def test_group_wrapper_cpu_uses_plain_and_checks_devices():
+    c = torch.zeros((1, 4, 2), dtype=torch.int32)
+    v = torch.ones((1, 4), dtype=torch.bool)
+    o = torch.zeros((1, 8, 8, 2))
+    before = group.LAUNCHES["group_pixels"]
+    out = group.group_pixels_batched(c, v, o, 4.0)
+    assert group.LAUNCHES["group_pixels"] == before
+    assert out.shape == (1, 8, 8) and out.dtype == torch.int32
+    with pytest.raises(ValueError, match="device"):
+        group.group_pixels_batched(c, v, o.to("meta"), 4.0)
+
+
+@pytest.mark.cuda
+def test_group_kernel_matches_plain_on_card():
+    """Runs only where a card is present (chip_smoke.py covers the same
+    ground at the main path's shapes)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    rng = np.random.default_rng(0)
+    b, h, w, k = 4, 64, 64, 256
+    c = torch.from_numpy(rng.integers(0, h, (b, k, 2)).astype(np.int32))
+    v = torch.from_numpy(rng.random((b, k)) < np.array([[1.0], [0.2],
+                                                        [0.0], [0.5]]))
+    o = torch.from_numpy((np.round(rng.standard_normal((b, h, w, 2)) * 16)
+                          / 2).astype(np.float32))
+    for step in (1.0, 4.0):
+        want = group.group_pixels_plain(c, v, o, step)
+        got = group.group_pixels_batched(c.cuda(), v.cuda(), o.cuda(), step)
+        torch.testing.assert_close(got.cpu(), want, rtol=0, atol=0)

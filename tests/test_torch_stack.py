@@ -1,0 +1,170 @@
+"""Port parity of the stack-mode path: the blocked engine's packed rows
+and run_inference3d(mode="stack") instance RLEs must equal the JAX
+package's exactly. Both sides run a parameter-free synthetic model with
+decisive maps (tests/synthetic.py and its torch twin
+empanada_torch.synthetic), so every integer output is comparable.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from empanada_tpu.cli.infer3d import run_inference3d as jax_run_inference3d
+from empanada_tpu.inference.fused import FusedStackEngine as JaxEngine
+from empanada_torch.cli.infer3d import run_inference3d
+from empanada_torch.inference.fused import FusedStackEngine
+from empanada_torch.models import create_model
+from empanada_torch.ops.group import LAUNCHES
+from empanada_torch.synthetic import SyntheticModule
+from tests.synthetic import SyntheticModule as JaxSyntheticModule
+
+
+class _DS:
+    def __init__(self, vol):
+        self.vol = vol
+
+    def __len__(self):
+        return len(self.vol)
+
+    def __getitem__(self, i):
+        return {"index": i, "image": self.vol[i], "size": self.vol[i].shape}
+
+
+def _blob_volume(seed, d=11, h=30, w=27, n_blobs=4):
+    """uint8 volume with several bright ellipsoids on dim noise: several
+    centers per slice, and a slice shape that is not a pad multiple."""
+    rng = np.random.default_rng(seed)
+    vol = rng.integers(0, 100, (d, h, w)).astype(np.uint8)
+    zz, yy, xx = np.mgrid[:d, :h, :w]
+    for _ in range(n_blobs):
+        cz, cy, cx = rng.uniform(0, d), rng.uniform(3, h - 3), \
+            rng.uniform(3, w - 3)
+        r = rng.uniform(2.5, 5)
+        vol[((zz - cz) / 2.5) ** 2 + ((yy - cy) / r) ** 2
+            + ((xx - cx) / r) ** 2 <= 1] = 250
+    return vol
+
+
+def _ellipsoid():
+    shape = (12, 32, 32)
+    zz, yy, xx = np.mgrid[: shape[0], : shape[1], : shape[2]]
+    return (((zz - 6.0) ** 2 / 16 + (yy - 15.0) ** 2 / 64
+             + (xx - 16.0) ** 2 / 49) <= 1.0).astype(np.float32)
+
+
+def _collect(block_iter, d):
+    got = {}
+    for z_indices, pan, packed in block_iter:
+        arr = np.asarray(packed).reshape(len(z_indices), -1, 3)
+        pan = np.asarray(pan)
+        for j, z in enumerate(z_indices):
+            if z is not None:
+                got[z] = (pan[j], arr[j])
+    assert sorted(got) == list(range(d))
+    return got
+
+
+@pytest.mark.parametrize("qlen", [3, 5])
+@pytest.mark.parametrize("block_size", [4, 8])
+def test_engine_packed_rows_match_jax(qlen, block_size):
+    vol = _blob_volume(seed=qlen * 10 + block_size)
+    kwargs = dict(thing_list=[1], label_divisor=100, stuff_area=0,
+                  median_kernel_size=qlen, padding_factor=16, max_centers=64,
+                  block_size=block_size,
+                  device_norms={"mean": 0.5, "std": 0.2})
+    want = _collect(JaxEngine(JaxSyntheticModule(), {}, **kwargs)
+                    .infer_blocks(_DS(vol)), len(vol))
+    engine = FusedStackEngine(SyntheticModule(), None, device="cpu",
+                              **kwargs)
+    got = _collect(engine.infer_blocks(_DS(vol)), len(vol))
+    n_fg = 0
+    for z in range(len(vol)):
+        np.testing.assert_array_equal(got[z][0], want[z][0], err_msg=str(z))
+        np.testing.assert_array_equal(got[z][1], want[z][1], err_msg=str(z))
+        n_fg += int(got[z][1][0, 0])
+    assert n_fg > 0
+    assert engine.last_dispatch_count == -(-(len(vol) + qlen // 2)
+                                           // block_size)
+
+
+def test_engine_overflow_and_auto_budget_match_jax():
+    """A tiny run budget overflows: the header still carries the true
+    count, the buffer the first runs; the auto budget and block size
+    follow the JAX rules."""
+    vol = np.zeros((5, 64, 64), np.float32)
+    vol[:, 4:, ::2] = 1.0
+    kwargs = dict(thing_list=[1], label_divisor=100, stuff_area=0,
+                  median_kernel_size=3, padding_factor=16, max_centers=16,
+                  block_size=4, max_runs=64)
+    want = _collect(JaxEngine(JaxSyntheticModule(), {}, **kwargs)
+                    .infer_blocks(_DS(vol)), 5)
+    got = _collect(FusedStackEngine(SyntheticModule(), None, device="cpu",
+                                    **kwargs).infer_blocks(_DS(vol)), 5)
+    for z in range(5):
+        assert got[z][1][0, 0] > 64
+        np.testing.assert_array_equal(got[z][1], want[z][1])
+
+    engine = FusedStackEngine(SyntheticModule(), None, [1], device="cpu")
+    jax_engine = JaxEngine.__new__(JaxEngine)
+    jax_engine.max_centers, jax_engine.block_size = 256, None
+    jax_engine.mid, jax_engine._mesh = 1, None
+    for hw in ((128, 128), (512, 512), (1024, 1024), (128, 384)):
+        assert engine._auto_max_runs(*hw) == jax_engine._auto_max_runs(*hw)
+        for n in (3, 16, 100):
+            assert engine._resolve_block(hw, n) == \
+                jax_engine._resolve_block(hw, n)
+
+
+@pytest.mark.parametrize("volume", ["ellipsoid", "blobs"])
+def test_run_inference3d_stack_matches_jax(volume):
+    if volume == "ellipsoid":
+        vol, norms, min_size = _ellipsoid(), None, 4
+    else:
+        vol, norms, min_size = _blob_volume(seed=3, d=9), \
+            {"mean": 0.5, "std": 0.2}, 10
+    kwargs = dict(labels=[1], thing_list=[1], mode="stack", qlen=3,
+                  label_divisor=100, block_size=4, padding_factor=16,
+                  max_centers=64, min_size=min_size, min_span=1,
+                  progress=False, norms=norms)
+    want = jax_run_inference3d((JaxSyntheticModule(), {}), vol, **kwargs)
+    stats = {}
+    got = run_inference3d(SyntheticModule(), vol, device="cpu", stats=stats,
+                          **kwargs)
+    assert sorted(got) == sorted(want) == [1]
+    ins_w, ins_g = want[1].instances, got[1].instances
+    assert len(ins_w) >= 1
+    assert sorted(ins_g) == sorted(ins_w)
+    for label, attrs in ins_w.items():
+        assert tuple(ins_g[label]["box"]) == tuple(attrs["box"]), label
+        np.testing.assert_array_equal(ins_g[label]["starts"], attrs["starts"])
+        np.testing.assert_array_equal(ins_g[label]["runs"], attrs["runs"])
+    assert stats["axes"]["xy"]["slices"] == len(vol)
+
+
+def test_orthoplane_is_not_ported_yet():
+    with pytest.raises(NotImplementedError, match="orthoplane"):
+        run_inference3d(SyntheticModule(), _ellipsoid(), labels=[1],
+                        thing_list=[1], mode="orthoplane", device="cpu")
+
+
+def test_tiny_mitonet_stack_end_to_end_on_cpu():
+    """The tiny MitoNet from a seeded init runs the whole stack path on
+    the CPU: plain grouping (no kernel launch), finite maps, a tracker."""
+    model = create_model("PanopticBiFPNPR", device="cpu", seed=0,
+                         encoder="regnety_200mf", fpn_layers=1,
+                         num_classes=1, subdivision_num_points=256)
+    rng = np.random.default_rng(12)
+    vol = rng.integers(0, 255, (5, 100, 140)).astype(np.uint8)
+    launches = LAUNCHES["group_pixels"]
+    stats = {}
+    out = run_inference3d(model, vol, labels=[1], thing_list=[1],
+                          mode="stack", norms={"mean": 0.57, "std": 0.12},
+                          min_size=20, min_span=2, progress=False,
+                          device="cpu", stats=stats)
+    assert LAUNCHES["group_pixels"] == launches
+    assert sorted(out) == [1] and out[1].shape3d == vol.shape
+    assert stats["axes"]["xy"]["slices"] == 5
+    with torch.inference_mode():
+        maps = model(torch.from_numpy(rng.normal(0, 1, (1, 1, 128, 128))
+                                      .astype(np.float32)))
+    assert all(torch.isfinite(v).all() for v in maps.values())
