@@ -8,9 +8,12 @@ failure exits non-zero before the final line):
 
 1. device: require CUDA; print the card's name and power limit;
 2. build every hand-written kernel from ``empanada_torch/csrc`` (one
-   nvcc per source, all started together);
-3. each kernel against its plain PyTorch version on the card, at the
-   main path's shapes (exact integer equality), with timings;
+   nvcc per source, all started together) and print ``ptxas -v``;
+3. each kernel against its plain PyTorch version on the card (exact
+   integer equality) at the main path's shape and at the fine-boundary
+   and dense shapes, then timings: the kernel's device time
+   (torch.profiler), the wrapper's (CUDA events, host included), the
+   plain version's and a library call's, beside the bounds;
 4. the main path at full width: MitoNet (PanopticBiFPNPR on
    regnety_6p4gf) from a seeded init through
    ``run_inference3d(mode="stack")`` on a seeded uint8 volume, with the
@@ -32,10 +35,23 @@ from pathlib import Path
 
 import numpy as np
 
-# published H100 SXM peaks (NVIDIA data sheet): float32 outside the
-# tensor cores, and HBM3 bandwidth
-PEAK_F32_FLOPS = 67e12
+# H100 SXM (NVIDIA data sheet): HBM3 bandwidth, and float32 outside the
+# tensor cores. Its 67 TFLOP/s counts an FMA as two operations; the
+# grouping kernel is built without FMA (--fmad=false, rounded
+# __fmul_rn / __fadd_rn), so each of its operations is one instruction at
+# half that rate.
 PEAK_BYTES = 3.35e12
+PEAK_F32_INSTR = 33.5e12
+# rounded f32 instructions per pixel-center pair of the grouping scan:
+# 2 subtractions, 2 products, 1 sum, 1 compare, 1 select
+OPS_PER_PAIR = 7
+
+# grouping kernel shapes: B, grid H = W, K, step, valid centers per slice
+GROUP_SHAPES = {
+    "main": (8, 128, 256, 4.0, [256, 256, 40, 0, 256, 17, 200, 63]),
+    "fine": (8, 512, 256, 1.0, [136, 120, 150, 136, 128, 144, 136, 140]),
+    "dense": (8, 128, 512, 4.0, [400, 380, 420, 400, 512, 390, 410, 388]),
+}
 
 
 def fail(msg):
@@ -44,7 +60,8 @@ def fail(msg):
 
 
 def cuda_ms(fn, reps=20, warmup=3):
-    """Mean milliseconds of fn() on the card (CUDA events)."""
+    """Mean milliseconds a call of fn() on the card's clock (CUDA events
+    around reps back-to-back calls: host launch cost included)."""
     import torch
 
     for _ in range(warmup):
@@ -58,6 +75,51 @@ def cuda_ms(fn, reps=20, warmup=3):
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def device_us(event):
+    return getattr(event, "self_device_time_total",
+                   getattr(event, "self_cuda_time_total", 0))
+
+
+def device_ms(fn, reps, kernel=None):
+    """Mean device milliseconds a call of fn() over reps back-to-back
+    calls: the self device time that torch.profiler records for the
+    kernels whose name contains ``kernel`` (every device event when None),
+    divided by reps. The profiler can lose device records: a trace
+    that does not hold all reps launches of ``kernel`` is taken again,
+    up to 3 times. Fails when no trace is whole, or when the profiler
+    records no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total = count = 0
+        for e in prof.key_averages():
+            if not str(e.device_type).endswith("CUDA"):
+                continue
+            if kernel is not None and kernel not in e.key:
+                continue
+            total += device_us(e)
+            count += e.count
+        if kernel is None or count == reps:
+            break
+        print(f"profiler counted {count} launches of {kernel}, not {reps}: "
+              f"tracing again")
+    else:
+        fail(f"profiler counted {count} launches of {kernel}, not {reps}, "
+             f"in 3 traces")
+    if total <= 0:
+        fail(f"torch.profiler recorded no device time for "
+             f"{kernel or 'the call'}")
+    return total / 1e3 / reps
 
 
 def phase_device():
@@ -85,81 +147,172 @@ def phase_build():
           f"{', '.join(sorted(libs))}")
 
 
-def group_inputs(rng, b, h, w, k, n_valid):
-    """Seeded inputs at the grouping kernel's main-path shapes: per slice
-    ``n_valid[i]`` valid centers among k, offsets of a few pixels."""
-    centers = rng.integers(0, h, (b, k, 2)).astype(np.int32)
-    valid = np.zeros((b, k), bool)
-    for i, nv in enumerate(n_valid):
-        valid[i, rng.permutation(k)[:nv]] = True
-    offsets = (rng.standard_normal((b, h, w, 2)) * 12).astype(np.float32)
-    # half-pixel quantized offsets put many pixels on exact ties
-    offsets[1::2] = np.round(offsets[1::2] * 2) / 2
-    return centers, valid, offsets
-
-
-def phase_group_kernel():
-    """group_pixels kernel vs its plain version, exact, at B=8, 128^2,
-    K=256; returns the kernel's JSON row (launches filled in later)."""
+def group_inputs(rng, shape, kind, n_valid=None):
+    """Seeded inputs for the grouping kernel at one of GROUP_SHAPES, on
+    the card. ``n_valid[i]`` valid centers in slice i: a random subset on
+    even slices, a valid prefix (as find_instance_centers gives) on odd
+    ones. Offsets: "random" (normal, 12 px), "em" (each pixel points at
+    its nearest valid center, plus normal noise of 1.5 px, as a trained
+    model's do) or "special" (random, with NaN, +-inf and +-1e6 at a few
+    pixels of every slice). Odd slices are quantized to half pixels,
+    which puts many pixels on exact distance ties."""
     import torch
 
     from empanada_torch.ops import group
 
-    rng = np.random.default_rng(0)
-    b, h, w, k = 8, 128, 128, 256
-    mixes = {
-        "mixed": [256, 256, 40, 0, 256, 17, 200, 63],
-        "full": [256] * b,
-        "sparse": [40] * b,
-        "none": [0] * b,
-    }
-    worst = 0
-    timed = None
-    for name, n_valid in mixes.items():
-        c, v, o = group_inputs(rng, b, h, w, k, n_valid)
-        dev = [torch.from_numpy(a).cuda() for a in (c, v, o)]
-        for step in (1.0, 4.0):
-            got = group.group_pixels_batched(*dev, step)
-            want = group.group_pixels_plain(*dev, step)
-            torch.cuda.synchronize()
-            err = int((got.long() - want.long()).abs().max())
-            worst = max(worst, err)
-            if err != 0:
-                n_bad = int((got != want).sum())
-                fail(f"group_pixels kernel != plain ({name}, step {step}):"
-                     f" {n_bad} pixels differ")
-            if name == "none" and int(got.abs().max()) != 0:
-                fail("group_pixels: slices without centers must be all 0")
-        if name == "mixed":
-            timed = (dev, n_valid)
-    print(f"group_pixels: kernel == plain exactly over "
-          f"{len(mixes)} center mixes x steps 1, 4 at B={b}, {h}x{w}, K={k}")
+    b, h, k, step, default_valid = GROUP_SHAPES[shape]
+    n_valid = default_valid if n_valid is None else n_valid
+    centers = rng.integers(0, h, (b, k, 2)).astype(np.int32)
+    valid = np.zeros((b, k), bool)
+    for i, nv in enumerate(n_valid):
+        valid[i, rng.permutation(k)[:nv] if i % 2 == 0 else slice(0, nv)] \
+            = True
+    noise = rng.standard_normal((b, h, h, 2)).astype(np.float32)
+    c = torch.from_numpy(centers).cuda()
+    v = torch.from_numpy(valid).cuda()
+    if kind == "em":
+        near = group.group_pixels_plain(c, v, torch.zeros((b, h, h, 2),
+                                                          device="cuda"),
+                                        step).long()
+        target = torch.gather(
+            c.float() * step, 1,
+            (near - 1).clamp(min=0).reshape(b, h * h, 1).expand(-1, -1, 2))
+        grid = torch.arange(h, dtype=torch.float32, device="cuda") * step
+        loc = torch.stack(torch.broadcast_tensors(grid[:, None], grid[None]),
+                          dim=-1)
+        o = torch.from_numpy(noise * 1.5).cuda()
+        o = torch.where(near[..., None] > 0,
+                        target.reshape(b, h, h, 2) - loc + o, o)
+    else:
+        o = torch.from_numpy(noise * 12).cuda()
+    o[1::2] = torch.round(o[1::2] * 2) / 2
+    if kind == "special":
+        flat = o.view(b, h * h, 2)
+        values = [float("nan"), float("inf"), -float("inf"), 1e6, -1e6]
+        for i in range(b):
+            at = torch.from_numpy(rng.choice(h * h, 5, replace=False)).cuda()
+            for j, val in enumerate(values):
+                flat[i, at[j], (i + j) % 2] = val
+    return c, v, o.contiguous()
 
-    (cen, val, off), n_valid = timed
-    step = 4.0
-    ms = cuda_ms(lambda: group.group_pixels_batched(cen, val, off, step))
-    plain_ms = cuda_ms(lambda: group.group_pixels_plain(cen, val, off, step))
+
+def print_ptxas(label, log):
+    for line in log.splitlines():
+        if "ptxas info" in line and ("registers" in line or "spill" in line
+                                     or "smem" in line):
+            print(f"{label} {line.strip()}")
+
+
+def group_check(c, v, o, step):
+    """Kernel ids against plain ids; returns (pixels that differ,
+    max |id difference|)."""
+    from empanada_torch.ops import group
+
+    got = group.group_pixels_batched(c, v, o, step)
+    want = group.group_pixels_plain(c, v, o, step)
+    return (int((got != want).sum()),
+            int((got.long() - want.long()).abs().max()))
+
+
+def group_timing(c, v, o, step):
+    """One input set's numbers: device ms of the kernel (torch.profiler,
+    200 launches), the wrapper's CUDA-event ms, the plain version's and
+    the library yardstick's device ms, the bounds, and the tile counters
+    with the time their kept pairs would take at the peak rate."""
+    import torch
+
+    from empanada_torch.ops import group
+
+    b, h, w, _ = o.shape
+
+    def kernel():
+        return group.group_pixels_batched(c, v, o, step)
 
     def library():
         # yardstick only: one PyTorch call for the distances + argmin
-        ys = torch.arange(h, device=off.device, dtype=torch.float32) * step
-        xs = torch.arange(w, device=off.device, dtype=torch.float32) * step
-        loc = torch.stack([ys[None, :, None] + off[..., 0],
-                           xs[None, None, :] + off[..., 1]], dim=-1)
-        d = torch.cdist(loc.reshape(b, h * w, 2), cen.float() * step)
+        ys = torch.arange(h, device=o.device, dtype=torch.float32) * step
+        xs = torch.arange(w, device=o.device, dtype=torch.float32) * step
+        loc = torch.stack([ys[None, :, None] + o[..., 0],
+                           xs[None, None, :] + o[..., 1]], dim=-1)
+        d = torch.cdist(loc.reshape(b, h * w, 2), c.float() * step)
         return d.argmin(dim=2)
 
-    library_ms = cuda_ms(library)
-    # the least work these inputs need: distances to the valid centers
-    # (~7 f32 ops per pixel-center pair); each input read, output written
-    flops = 7.0 * h * w * sum(n_valid)
-    nbytes = cen.numel() * 4 + val.numel() + off.numel() * 4 + b * h * w * 4
-    t_ops = flops / PEAK_F32_FLOPS * 1e3
+    reps, slow_reps = 200, max(3, 20 * 128 * 128 // (h * w))
+    name = "group_pixels_kernel"
+    row = {"ms": device_ms(kernel, reps, name)}
+    row["wrapper_ms"] = cuda_ms(kernel, reps)
+    row["plain_ms"] = device_ms(
+        lambda: group.group_pixels_plain(c, v, o, step), slow_reps)
+    row["library_ms"] = device_ms(library, slow_reps)
+    # bound: each input read once and the ids written once, against the
+    # one distance per pixel that any exact method computes (its winner's)
+    nbytes = c.numel() * 4 + v.numel() + o.numel() * 4 + b * h * w * 4
     t_bytes = nbytes / PEAK_BYTES * 1e3
-    print(f"group_pixels (B={b}, {h}x{w}, K={k}, step 4): kernel "
-          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, torch.cdist+argmin "
-          f"{library_ms:.4f} ms, bound {max(t_ops, t_bytes):.6f} ms "
-          f"({flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.3f} MB)")
+    t_ops = OPS_PER_PAIR * b * h * w / PEAK_F32_INSTR * 1e3
+    row["bound_ms"] = max(t_bytes, t_ops)
+    row["bound_by"] = "operations" if t_ops > t_bytes else "bytes"
+    valid_pairs = int(v.sum()) * h * w
+    row["scan_bound_ms"] = OPS_PER_PAIR * valid_pairs / PEAK_F32_INSTR * 1e3
+    # not a bound: the pairs this kernel's tiles kept (its own pruning)
+    # at the peak rate
+    stats = group.tile_stats(c, v, o, step)
+    pairs = stats["pruned_pairs"] + stats["exhaustive_pairs"]
+    row["kept_pairs_ms"] = OPS_PER_PAIR * pairs / PEAK_F32_INSTR * 1e3
+    row["pairs_per_valid_pair"] = pairs / max(1, valid_pairs)
+    row["tiles"] = stats
+    return row
+
+
+def phase_group_kernel():
+    """group_pixels kernel vs its plain version, exact, at the main,
+    fine and dense shapes over random-subset and prefix masks, random,
+    EM-like and special offsets (NaN, +-inf, +-1e6) and, at main, the
+    full / sparse / empty mixes at steps 1 and 4; then the timings.
+    Returns the kernel's JSON row (launches filled in later)."""
+    from empanada_torch import cuda_build
+
+    print_ptxas("group_pixels", cuda_build.build_log("group_pixels"))
+    rng = np.random.default_rng(0)
+    b = GROUP_SHAPES["main"][0]
+    cases = [("main", kind, None, step) for kind in ("random", "em",
+                                                     "special")
+             for step in (1.0, 4.0)]
+    cases += [("main", "random", n_valid, step)
+              for n_valid in ([256] * b, [40] * b, [0] * b)
+              for step in (1.0, 4.0)]
+    cases += [(shape, kind, None, GROUP_SHAPES[shape][3])
+              for shape in ("fine", "dense")
+              for kind in ("random", "em", "special")]
+    worst = 0
+    for shape, kind, n_valid, step in cases:
+        c, v, o = group_inputs(rng, shape, kind, n_valid)
+        label = (f"{shape}/{kind}/step {step:g}"
+                 f"{'' if n_valid is None else f'/valid {n_valid[0]}'}")
+        n_bad, err = group_check(c, v, o, step)
+        worst = max(worst, err)
+        if n_bad:
+            fail(f"group_pixels kernel != plain ({label}): {n_bad} pixels "
+                 f"differ")
+    print(f"group_pixels: kernel == plain exactly over {len(cases)} cases "
+          f"(shapes main, fine, dense; offsets random, EM-like, special; "
+          f"random and prefix masks; steps 1, 4 at main)")
+
+    shapes = {}
+    for shape, (b, h, k, step, n_valid) in GROUP_SHAPES.items():
+        for kind in ("random", "em"):
+            c, v, o = group_inputs(np.random.default_rng(1), shape, kind)
+            row = group_timing(c, v, o, step)
+            shapes.setdefault(shape, {})[kind] = row
+            print(f"group_pixels {shape} (B={b}, {h}x{h}, K={k}, "
+                  f"{sum(n_valid)} valid, step {step:g}) {kind}: device "
+                  f"{row['ms']:.5f} ms; wrapper {row['wrapper_ms']:.5f} ms, "
+                  f"plain {row['plain_ms']:.4f} ms, cdist+argmin "
+                  f"{row['library_ms']:.4f} ms; bound {row['bound_ms']:.6f} "
+                  f"ms ({row['bound_by']}), exhaustive scan bound "
+                  f"{row['scan_bound_ms']:.6f} ms, kept pairs "
+                  f"{row['kept_pairs_ms']:.6f} ms; tiles {row['tiles']}")
+
+    main = shapes["main"]["random"]
     return {
         "name": "group_pixels",
         "route": "cuda",
@@ -167,11 +320,14 @@ def phase_group_kernel():
         "replaces": "empanada_tpu/ops/pallas_group.py:35",
         "launches": 0,
         "max_abs_err": worst,
-        "ms": ms,
-        "plain_ms": plain_ms,
-        "bound_ms": max(t_ops, t_bytes),
-        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-        "library_ms": library_ms,
+        "ms": main["ms"],
+        "wrapper_ms": main["wrapper_ms"],
+        "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"],
+        "bound_by": main["bound_by"],
+        "scan_bound_ms": main["scan_bound_ms"],
+        "library_ms": main["library_ms"],
+        "shapes": shapes,
     }
 
 
@@ -317,10 +473,6 @@ def phase_breakdown(model, vol):
         t0 = time.time()
         engine_pass()
         wall_ms = (time.time() - t0) * 1e3
-
-    def device_us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0))
 
     # device-side entries only (kernels, copies): the aten ops that
     # launch them carry the same time again

@@ -17,7 +17,7 @@ import subprocess
 import threading
 from pathlib import Path
 
-__all__ = ["KERNEL_SOURCES", "build", "build_all", "load"]
+__all__ = ["KERNEL_SOURCES", "build", "build_all", "build_log", "load"]
 
 PKG_DIR = Path(__file__).resolve().parent
 CSRC_DIR = PKG_DIR / "csrc"
@@ -25,7 +25,8 @@ BUILD_DIR = PKG_DIR.parent / "build" / "empanada_torch"
 KERNEL_SOURCES = ("group_pixels",)
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "--fmad=false", "-Xptxas=-v", "-shared", "-Xcompiler",
+              "-fPIC"]
 
 _lock = threading.Lock()
 _libs = {}
@@ -69,8 +70,16 @@ def _finish(name, target, tmp, proc):
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {name} (rc {proc.returncode}):"
                            f"\n{out}")
+    target.with_suffix(".log").write_text(out)
     os.replace(tmp, target)
     return target
+
+
+def build_log(name: str) -> str:
+    """nvcc's output (ptxas registers, shared memory, spills) from the
+    build of the current ``csrc/<name>.cu``; empty if it is not built."""
+    log = _target(name).with_suffix(".log")
+    return log.read_text() if log.exists() else ""
 
 
 def build_all(names=KERNEL_SOURCES):

@@ -8,9 +8,15 @@ realistic scale. Tolerance: 1e-4 of max |value| per output (float32,
 different summation order in the convolutions).
 """
 
+import pytest
+
+# the JAX package's third-party dependencies: where only the port's are
+# installed, these parity tests skip
+for _dep in ("jax", "flax", "yaml"):
+    pytest.importorskip(_dep, reason="parity tests need the JAX package")
+
 import jax
 import numpy as np
-import pytest
 import torch
 from flax import traverse_util
 

@@ -6,10 +6,16 @@ the same formulas); integer outputs (centers, grouping, merges, runs)
 must be identical.
 """
 
+import pytest
+
+# the JAX package's third-party dependencies: where only the port's are
+# installed, these parity tests skip
+for _dep in ("jax", "flax", "yaml"):
+    pytest.importorskip(_dep, reason="parity tests need the JAX package")
+
 import jax
 import jax.numpy as jnp
 import numpy as np
-import pytest
 import torch
 
 from empanada_tpu.ops import postprocess as jpost

@@ -9,6 +9,11 @@ import numpy as np
 import pytest
 import torch
 
+# the JAX package's third-party dependencies: where only the port's are
+# installed, these parity tests skip
+for _dep in ("jax", "flax", "yaml"):
+    pytest.importorskip(_dep, reason="parity tests need the JAX package")
+
 from empanada_tpu.cli.infer3d import run_inference3d as jax_run_inference3d
 from empanada_tpu.inference.fused import FusedStackEngine as JaxEngine
 from empanada_torch.cli.infer3d import run_inference3d
