@@ -10,17 +10,29 @@ failure exits non-zero before the final line):
 2. build every hand-written kernel from ``empanada_torch/csrc`` (one
    nvcc per source, all started together) and print ``ptxas -v``;
 3. each kernel against its plain PyTorch version on the card (exact
-   integer equality) at the main path's shape and at the fine-boundary
-   and dense shapes, then timings: the kernel's device time
-   (torch.profiler), the wrapper's (CUDA events, host included), the
-   plain version's and a library call's, beside the bounds;
-4. the main path at full width: MitoNet (PanopticBiFPNPR on
+   integer equality) at the stack path's shape, at the fine-boundary
+   and dense shapes and at the blocks the orthoplane path's three axes
+   give it (derived from its volume), then timings: the kernel's device time (torch.profiler), the
+   wrapper's (CUDA events, host included), the plain version's and a
+   library call's, beside the bounds;
+4. the stack main path at full width: MitoNet (PanopticBiFPNPR on
    regnety_6p4gf) from a seeded init through
    ``run_inference3d(mode="stack")`` on a seeded uint8 volume, with the
    kernel launch counts read around that run; plus the full-width model
    forward on CUDA against the CPU on a small input;
-5. content: a parameter-free synthetic model on an ellipsoid volume,
-   CUDA vs CPU instance RLEs exactly equal and matching the ellipsoid.
+5. the orthoplane main path at full width: the same model through
+   ``run_inference3d(mode="orthoplane")`` on a seeded uint8 volume with
+   three different sides, none a multiple of 128: per-axis times and
+   kernel launches, the consensus time, the 3D instances;
+6. fill and store: the consensus filled into a zarr store, read back
+   and held against a dense numpy fill;
+7. the command line: the model exported to a descriptor, a crop of the
+   volume written as a zarr store, ``cli.infer3d.main`` in orthoplane
+   mode, and its class zarr held against a fill of its tracker json
+   (needs PyYAML; says so and does not run where that is missing);
+8. content: a parameter-free synthetic model on an ellipsoid volume in
+   stack and in orthoplane mode, CUDA vs CPU instance RLEs exactly
+   equal and matching the ellipsoid.
 
 The line before the last is the kernel table (JSON); the last line is
 ``{"ok": true, "device": {...}}``.
@@ -30,8 +42,10 @@ import argparse
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 
@@ -46,17 +60,47 @@ PEAK_F32_INSTR = 33.5e12
 # 2 subtractions, 2 products, 1 sum, 1 compare, 1 select
 OPS_PER_PAIR = 7
 
-# grouping kernel shapes: B, grid H = W, K, step, valid centers per slice
+# grouping kernel shapes: B, grid H, W, K, step, valid centers per slice.
+# orthoplane_group_shapes() adds the blocks of the orthoplane path's axes
+_MIX = [256, 256, 40, 0, 256, 17, 200, 63]
 GROUP_SHAPES = {
-    "main": (8, 128, 256, 4.0, [256, 256, 40, 0, 256, 17, 200, 63]),
-    "fine": (8, 512, 256, 1.0, [136, 120, 150, 136, 128, 144, 136, 140]),
-    "dense": (8, 128, 512, 4.0, [400, 380, 420, 400, 512, 390, 410, 388]),
+    "main": (8, 128, 128, 256, 4.0, _MIX),
+    "fine": (8, 512, 512, 256, 1.0,
+             [136, 120, 150, 136, 128, 144, 136, 140]),
+    "dense": (8, 128, 128, 512, 4.0,
+              [400, 380, 420, 400, 512, 390, 410, 388]),
 }
+AXES = ("xy", "xz", "yz")
+
+# the orthoplane main path's volume: three different sides, none a
+# multiple of the padding factor (128)
+ORTHO_SHAPE = (96, 192, 320)
+NORMS = {"mean": 0.57, "std": 0.12}
+MITONET = {"arch": "PanopticBiFPNPR", "encoder": "regnety_6p4gf",
+           "num_classes": 1}
 
 
 def fail(msg):
     print(f"chip_smoke FAILED: {msg}", file=sys.stderr)
     sys.exit(1)
+
+
+def orthoplane_group_shapes():
+    """The grouping kernel's shape on each axis of the orthoplane main
+    path, as the engine derives it from ORTHO_SHAPE: slices padded to the
+    padding factor (128), the automatic block size for that slice shape
+    (median kernel 3), the center grid at a quarter of the slice."""
+    from empanada_torch.inference.fused import FusedStackEngine
+
+    engine = SimpleNamespace(block_size=None, mid=1)
+    shapes = {}
+    for axis, name in enumerate(AXES):
+        ph, pw = (-(-side // 128) * 128
+                  for i, side in enumerate(ORTHO_SHAPE) if i != axis)
+        b = FusedStackEngine._resolve_block(engine, (ph, pw),
+                                            ORTHO_SHAPE[axis])
+        shapes[name] = (b, ph // 4, pw // 4, 256, 4.0, (_MIX * 8)[:b])
+    return shapes
 
 
 def cuda_ms(fn, reps=20, warmup=3):
@@ -160,37 +204,39 @@ def group_inputs(rng, shape, kind, n_valid=None):
 
     from empanada_torch.ops import group
 
-    b, h, k, step, default_valid = GROUP_SHAPES[shape]
+    b, h, w, k, step, default_valid = GROUP_SHAPES[shape]
     n_valid = default_valid if n_valid is None else n_valid
-    centers = rng.integers(0, h, (b, k, 2)).astype(np.int32)
+    centers = rng.integers(0, h if h == w else (h, w),
+                           (b, k, 2)).astype(np.int32)
     valid = np.zeros((b, k), bool)
     for i, nv in enumerate(n_valid):
         valid[i, rng.permutation(k)[:nv] if i % 2 == 0 else slice(0, nv)] \
             = True
-    noise = rng.standard_normal((b, h, h, 2)).astype(np.float32)
+    noise = rng.standard_normal((b, h, w, 2)).astype(np.float32)
     c = torch.from_numpy(centers).cuda()
     v = torch.from_numpy(valid).cuda()
     if kind == "em":
-        near = group.group_pixels_plain(c, v, torch.zeros((b, h, h, 2),
+        near = group.group_pixels_plain(c, v, torch.zeros((b, h, w, 2),
                                                           device="cuda"),
                                         step).long()
         target = torch.gather(
             c.float() * step, 1,
-            (near - 1).clamp(min=0).reshape(b, h * h, 1).expand(-1, -1, 2))
-        grid = torch.arange(h, dtype=torch.float32, device="cuda") * step
-        loc = torch.stack(torch.broadcast_tensors(grid[:, None], grid[None]),
+            (near - 1).clamp(min=0).reshape(b, h * w, 1).expand(-1, -1, 2))
+        ys = torch.arange(h, dtype=torch.float32, device="cuda") * step
+        xs = torch.arange(w, dtype=torch.float32, device="cuda") * step
+        loc = torch.stack(torch.broadcast_tensors(ys[:, None], xs[None]),
                           dim=-1)
         o = torch.from_numpy(noise * 1.5).cuda()
         o = torch.where(near[..., None] > 0,
-                        target.reshape(b, h, h, 2) - loc + o, o)
+                        target.reshape(b, h, w, 2) - loc + o, o)
     else:
         o = torch.from_numpy(noise * 12).cuda()
     o[1::2] = torch.round(o[1::2] * 2) / 2
     if kind == "special":
-        flat = o.view(b, h * h, 2)
+        flat = o.view(b, h * w, 2)
         values = [float("nan"), float("inf"), -float("inf"), 1e6, -1e6]
         for i in range(b):
-            at = torch.from_numpy(rng.choice(h * h, 5, replace=False)).cuda()
+            at = torch.from_numpy(rng.choice(h * w, 5, replace=False)).cuda()
             for j, val in enumerate(values):
                 flat[i, at[j], (i + j) % 2] = val
     return c, v, o.contiguous()
@@ -265,13 +311,15 @@ def group_timing(c, v, o, step):
 
 def phase_group_kernel():
     """group_pixels kernel vs its plain version, exact, at the main,
-    fine and dense shapes over random-subset and prefix masks, random,
-    EM-like and special offsets (NaN, +-inf, +-1e6) and, at main, the
-    full / sparse / empty mixes at steps 1 and 4; then the timings.
-    Returns the kernel's JSON row (launches filled in later)."""
+    fine, dense and the orthoplane path's xy / xz / yz shapes over
+    random-subset and prefix masks, random, EM-like and special offsets
+    (NaN, +-inf, +-1e6) and, at main, the full / sparse / empty mixes at
+    steps 1 and 4; then the timings. Returns the kernel's JSON row
+    (launches filled in later)."""
     from empanada_torch import cuda_build
 
     print_ptxas("group_pixels", cuda_build.build_log("group_pixels"))
+    GROUP_SHAPES.update(orthoplane_group_shapes())
     rng = np.random.default_rng(0)
     b = GROUP_SHAPES["main"][0]
     cases = [("main", kind, None, step) for kind in ("random", "em",
@@ -280,8 +328,8 @@ def phase_group_kernel():
     cases += [("main", "random", n_valid, step)
               for n_valid in ([256] * b, [40] * b, [0] * b)
               for step in (1.0, 4.0)]
-    cases += [(shape, kind, None, GROUP_SHAPES[shape][3])
-              for shape in ("fine", "dense")
+    cases += [(shape, kind, None, GROUP_SHAPES[shape][4])
+              for shape in ("fine", "dense") + AXES
               for kind in ("random", "em", "special")]
     worst = 0
     for shape, kind, n_valid, step in cases:
@@ -293,17 +341,21 @@ def phase_group_kernel():
         if n_bad:
             fail(f"group_pixels kernel != plain ({label}): {n_bad} pixels "
                  f"differ")
+    blocks = ", ".join("{} {}x{}x{}".format(a, *GROUP_SHAPES[a][:3])
+                       for a in AXES)
     print(f"group_pixels: kernel == plain exactly over {len(cases)} cases "
-          f"(shapes main, fine, dense; offsets random, EM-like, special; "
-          f"random and prefix masks; steps 1, 4 at main)")
+          f"(shapes main, fine, dense and the orthoplane blocks {blocks}; "
+          f"offsets "
+          f"random, EM-like, special; random and prefix masks; steps 1, 4 "
+          f"at main)")
 
     shapes = {}
-    for shape, (b, h, k, step, n_valid) in GROUP_SHAPES.items():
+    for shape, (b, h, w, k, step, n_valid) in GROUP_SHAPES.items():
         for kind in ("random", "em"):
             c, v, o = group_inputs(np.random.default_rng(1), shape, kind)
             row = group_timing(c, v, o, step)
             shapes.setdefault(shape, {})[kind] = row
-            print(f"group_pixels {shape} (B={b}, {h}x{h}, K={k}, "
+            print(f"group_pixels {shape} (B={b}, {h}x{w}, K={k}, "
                   f"{sum(n_valid)} valid, step {step:g}) {kind}: device "
                   f"{row['ms']:.5f} ms; wrapper {row['wrapper_ms']:.5f} ms, "
                   f"plain {row['plain_ms']:.4f} ms, cdist+argmin "
@@ -344,6 +396,13 @@ def em_like_volume(rng, d, h, w, n_blobs=40):
     return np.clip(vol, 0, 255).astype(np.uint8)
 
 
+def inference_kwargs(mode):
+    """The settings both main paths call run_inference3d with."""
+    return dict(labels=[1], thing_list=[1], mode=mode, qlen=3,
+                label_divisor=20000, norms=NORMS, device="cuda",
+                min_size=500, min_span=4)
+
+
 def phase_main_path():
     """Full-width MitoNet through run_inference3d(stack) on the card;
     returns the kernel launch counts of that run, the model and the
@@ -354,8 +413,8 @@ def phase_main_path():
     from empanada_torch.models import create_model
     from empanada_torch.ops import group
 
-    model = create_model("PanopticBiFPNPR", encoder="regnety_6p4gf",
-                         num_classes=1, device="cuda", seed=0)
+    cfg = dict(MITONET)
+    model = create_model(cfg.pop("arch"), device="cuda", seed=0, **cfg)
     n_params = sum(p.numel() for p in model.parameters())
     print(f"MitoNet (PanopticBiFPNPR, regnety_6p4gf): {n_params} parameters")
 
@@ -366,8 +425,7 @@ def phase_main_path():
     with torch.inference_mode():
         got = {k: v.float().cpu() for k, v in
                model(x.cuda(), interpolate_ins=False).items()}
-        cpu_model = create_model("PanopticBiFPNPR", encoder="regnety_6p4gf",
-                                 num_classes=1, device="cpu")
+        cpu_model = create_model(MITONET["arch"], device="cpu", **cfg)
         cpu_model.load_state_dict({k: v.cpu() for k, v in
                                    model.state_dict().items()})
         want = cpu_model(x, interpolate_ins=False)
@@ -386,10 +444,7 @@ def phase_main_path():
                  f"({rel:.2e} > 1e-3 of max |value|)")
     del cpu_model
 
-    norms = {"mean": 0.57, "std": 0.12}
-    kwargs = dict(labels=[1], thing_list=[1], mode="stack", qlen=3,
-                  label_divisor=20000, norms=norms, progress=False,
-                  device="cuda", min_size=500, min_span=4)
+    kwargs = dict(inference_kwargs("stack"), progress=False)
     rng = np.random.default_rng(2)
     # warm-up on a short stack of the same slice shape (same block size)
     run_inference3d(model, em_like_volume(rng, 4, 512, 512, 10), **kwargs)
@@ -408,33 +463,318 @@ def phase_main_path():
         fail(f"main path returned {sorted(result)}")
     n_inst = len(result[1].instances)
     axis = stats["axes"]["xy"]
-    print(f"main path: {vol.shape[0]} slices of {vol.shape[1]}x"
+    print(f"stack main path: {vol.shape[0]} slices of {vol.shape[1]}x"
           f"{vol.shape[2]} in {seconds:.3f} s = "
           f"{vol.shape[0] / seconds:.2f} slices/s; "
           f"{axis['instances_matched']} matched 2D instances, {n_inst} 3D "
           f"instances, {axis['overflow_slices']} overflow slices; kernel "
           f"launches {launches}")
     if launches["group_pixels"] <= 0:
-        fail("the main path never launched the group_pixels kernel")
+        fail("the stack main path never launched the group_pixels kernel")
     return launches, model, vol
 
 
+class AxisProbe:
+    """The orthoplane volume as run_inference3d reads it, with a note of
+    each axis's first slice read (the time, and the kernel launch counts
+    at that moment: the axes stream one after the other, so the counts at
+    an axis's first read are the sums over the axes before it) and of the
+    seconds spent reading each axis's slices."""
+
+    def __init__(self, vol, counts):
+        self.vol = vol
+        self.shape, self.dtype = vol.shape, vol.dtype
+        self.counts = counts
+        self.first = {}
+        self.read_seconds = {}
+
+    def __getitem__(self, key):
+        axis = next(a for a, k in enumerate(key) if not isinstance(k, slice))
+        if axis not in self.first:
+            self.first[axis] = (time.time(), dict(self.counts))
+        t0 = time.time()
+        out = np.ascontiguousarray(self.vol[key])
+        self.read_seconds[axis] = self.read_seconds.get(axis, 0.0) \
+            + time.time() - t0
+        return out
+
+
+def phase_orthoplane(model):
+    """Full-width MitoNet through run_inference3d(orthoplane) on the
+    card, after a warm-up of each axis's slice shape; returns the kernel
+    launch counts of that run (total and per axis), the consensus and
+    the volume."""
+    import torch
+
+    from empanada_torch.cli.infer3d import run_inference3d
+    from empanada_torch.ops import group
+
+    d, h, w = ORTHO_SHAPE
+    vol = em_like_volume(np.random.default_rng(4), d, h, w, n_blobs=30)
+    kwargs = inference_kwargs("orthoplane")
+
+    # warm-up: a short stack of each axis's slices (same slice shape and
+    # block size as the axis gives the engine) through the entry point
+    t0 = time.time()
+    warm = [GROUP_SHAPES[name][0] for name in AXES]
+    for axis, n_warm in enumerate(warm):
+        head = np.ascontiguousarray(np.moveaxis(vol, axis, 0)[:n_warm])
+        run_inference3d(model, head, **dict(kwargs, mode="stack",
+                                            progress=False))
+    torch.cuda.synchronize()
+    print(f"orthoplane warm-up ({' / '.join(map(str, warm))} slices of the "
+          f"three slice shapes, stack mode): {time.time() - t0:.3f} s")
+
+    group.reset_launches()
+    probe = AxisProbe(vol, group.LAUNCHES)
+    stats = {}
+    t0 = time.time()
+    result = run_inference3d(model, probe, stats=stats, progress=True,
+                             **kwargs)
+    torch.cuda.synchronize()
+    seconds = time.time() - t0
+    launches = dict(group.LAUNCHES)
+
+    if sorted(result) != [1] or tuple(result[1].shape3d) != vol.shape:
+        fail(f"orthoplane path returned {sorted(result)} with shape3d "
+             f"{result[1].shape3d if 1 in result else None}, not "
+             f"{vol.shape}")
+    n_slices = sum(vol.shape)
+    print(f"orthoplane main path: volume {vol.shape} uint8, {n_slices} "
+          f"slices over three axes in {seconds:.3f} s = "
+          f"{n_slices / seconds:.2f} slices/s "
+          f"({vol.size / 512 ** 2 * 3 / seconds:.2f} 512^2-slice "
+          f"equivalents/s)")
+    firsts = [probe.first[a][1]["group_pixels"] for a in range(3)] \
+        + [launches["group_pixels"]]
+    per_axis = {}
+    for a, name in enumerate(AXES):
+        ax = stats["axes"][name]
+        per_axis[name] = firsts[a + 1] - firsts[a]
+        print(f"orthoplane {name}: {ax['slices']} slices, started at "
+              f"{probe.first[a][0] - t0:.3f} s, forward "
+              f"{ax['forward_seconds']:.3f} s, with its host tail "
+              f"{ax['seconds']:.3f} s; {ax['instances_matched']} matched 2D "
+              f"instances, {ax['overflow_slices']} overflow slices; "
+              f"group_pixels launches {per_axis[name]}; slice reads "
+              f"{probe.read_seconds[a]:.3f} s")
+        if per_axis[name] <= 0:
+            fail(f"the orthoplane path launched no group_pixels kernel on "
+                 f"axis {name}")
+    print(f"orthoplane consensus: {stats['consensus_seconds']:.3f} s, "
+          f"{len(result[1].instances)} 3D instances; kernel launches "
+          f"{launches}")
+    return {"total": launches["group_pixels"], "per_axis": per_axis}, \
+        result, vol
+
+
+def label_volume_instances(vol):
+    """{label: {"box", "starts", "runs"}} of a 3D label volume, in the
+    trackers' form: flat runs in raveled coordinates, a 3D box each."""
+    d, h, w = vol.shape
+    flat = vol.reshape(-1)
+    cuts = np.flatnonzero(flat[1:] != flat[:-1]) + 1
+    starts = np.concatenate([[0], cuts])
+    ends = np.concatenate([cuts, [flat.size]])
+    labels = flat[starts]
+    order = np.argsort(labels, kind="stable")
+    order = order[labels[order] > 0]
+    starts, ends, labels = starts[order], ends[order], labels[order]
+    bounds = np.flatnonzero(np.concatenate(
+        [[True], labels[1:] != labels[:-1], [True]]))
+    z, y = starts // (h * w), (starts // w) % h
+    x0, x1 = starts % w, (ends - 1) % w + 1
+    instances = {}
+    for i0, i1 in zip(bounds[:-1], bounds[1:]):
+        sl = slice(i0, i1)
+        instances[int(labels[i0])] = {
+            "box": (int(z[sl].min()), int(y[sl].min()), int(x0[sl].min()),
+                    int(z[sl].max()) + 1, int(y[sl].max()) + 1,
+                    int(x1[sl].max())),
+            "starts": starts[sl], "runs": ends[sl] - starts[sl]}
+    return instances
+
+
+def phase_consensus_at_density(n_objects=1500):
+    """The host's consensus and fill on their own at a product-like
+    instance count (``--profile``): three views of ``n_objects`` seeded
+    ellipsoids in a volume of ORTHO_SHAPE, each view with its own jitter,
+    a tenth of the objects dropped and its own numbering, as three axis
+    passes of a trained model give. A seeded init's own consensus is one
+    instance, so the main path's consensus time says nothing of this."""
+    from empanada_torch.inference import patterns
+    from empanada_torch.inference.tracker import InstanceTracker
+
+    rng = np.random.default_rng(6)
+    shape = ORTHO_SHAPE
+    centers = rng.uniform(0, shape, (n_objects, 3))
+    radii = rng.uniform(3.0, 8.0, (n_objects, 3))
+    trackers = []
+    for _ in range(3):
+        vol = np.zeros(shape, np.uint32)
+        keep = rng.random(n_objects) > 0.1
+        ids = rng.permutation(n_objects) + 1
+        for k in np.flatnonzero(keep):
+            c = centers[k] + rng.uniform(-1, 1, 3)
+            r = radii[k] * rng.uniform(0.9, 1.1, 3)
+            lo = np.maximum(np.floor(c - r).astype(int), 0)
+            hi = np.minimum(np.ceil(c + r).astype(int) + 1, shape)
+            zz, yy, xx = np.ogrid[lo[0]:hi[0], lo[1]:hi[1], lo[2]:hi[2]]
+            inside = ((zz - c[0]) / r[0]) ** 2 + ((yy - c[1]) / r[1]) ** 2 \
+                + ((xx - c[2]) / r[2]) ** 2 <= 1
+            vol[lo[0]:hi[0], lo[1]:hi[1], lo[2]:hi[2]][inside] = ids[k]
+        tracker = InstanceTracker(1, 20000, shape, "xy")
+        tracker.instances = label_volume_instances(vol)
+        tracker.finished = True
+        trackers.append(tracker)
+
+    t0 = time.time()
+    consensus = patterns.create_instance_consensus(trackers, 2, 0.75)
+    cons_s = time.time() - t0
+    dense = np.zeros(shape, np.uint32)
+    t0 = time.time()
+    patterns.fill_volume(dense, consensus.instances)
+    fill_s = time.time() - t0
+    print(f"breakdown consensus at density: three views of "
+          f"{' / '.join(str(len(t.instances)) for t in trackers)} "
+          f"instances in {shape}: consensus {cons_s:.3f} s (host, one "
+          f"thread) -> {len(consensus.instances)} instances, "
+          f"{int((dense > 0).sum())} voxels; dense numpy fill "
+          f"{fill_s:.3f} s")
+    if not n_objects // 2 < len(consensus.instances) <= n_objects:
+        fail(f"consensus at density: {len(consensus.instances)} instances "
+             f"from {n_objects} objects")
+
+
+def dense_fill(shape, instances):
+    from empanada_torch.core.fill import numpy_fill_instances
+
+    dense = np.zeros(shape, np.uint32)
+    numpy_fill_instances(dense, instances)
+    return dense
+
+
+def phase_fill_store(result, shape, tmp):
+    """The consensus through patterns.fill_volume into a zarr store, read
+    back, against numpy_fill_instances on a dense array."""
+    from empanada_torch.data.zarr_store import create_zarr, open_zarr
+    from empanada_torch.inference import patterns
+
+    instances = result[1].instances
+    path = str(Path(tmp) / "consensus.zarr")
+    store = create_zarr(path, shape, dtype=np.uint32)
+    t0 = time.time()
+    patterns.fill_volume(store, instances, processes=4)
+    seconds = time.time() - t0
+    back = np.asarray(open_zarr(path))
+    dense = dense_fill(shape, instances)
+    if back.shape != dense.shape or not np.array_equal(back, dense):
+        fail("fill and store: the zarr store read back differs from the "
+             "dense numpy fill")
+    print(f"fill and store: {len(instances)} instances, "
+          f"{int((dense > 0).sum())} voxels into a zarr store {shape} "
+          f"(chunks {store.chunks}, zlib) in {seconds:.3f} s; read back == "
+          f"dense numpy fill")
+
+
+def phase_command_line(model, vol, tmp):
+    """export_model -> descriptor; a crop of the volume as a zarr store;
+    cli.infer3d.main in orthoplane mode; the class zarr against a fill of
+    the tracker json. Returns the kernel launches of that run, or None
+    where PyYAML (the descriptor's format) is not installed."""
+    try:
+        import yaml  # noqa: F401
+    except ImportError:
+        print("command line: DID NOT RUN: PyYAML is not installed on this "
+              "machine, and the descriptor is a yaml file")
+        return None
+    from empanada_torch.cli import infer3d
+    from empanada_torch.data.zarr_store import create_zarr, open_zarr
+    from empanada_torch.export import export_model
+    from empanada_torch.inference.tracker import InstanceTracker
+    from empanada_torch.ops import group
+
+    tmp = Path(tmp)
+    export_model(model.state_dict(), MITONET, str(tmp), "mitonet",
+                 norms=NORMS)
+    crop = vol[:40, :100, :150]
+    store = create_zarr(str(tmp / "crop.zarr"), crop.shape, dtype=np.uint8)
+    store[:, :, :] = crop
+
+    group.reset_launches()
+    t0 = time.time()
+    infer3d.main([str(tmp / "mitonet.yaml"), str(tmp / "crop.zarr"),
+                  "-mode", "orthoplane", "-qlen", "3"])
+    seconds = time.time() - t0
+    launches = group.LAUNCHES["group_pixels"]
+    if launches <= 0:
+        fail("the command line never launched the group_pixels kernel")
+
+    seg_path = tmp / "crop_orthoplane_seg_class1.zarr"
+    json_path = tmp / "crop_orthoplane_class1.json"
+    if not (seg_path / ".zarray").exists() or not json_path.exists():
+        fail(f"command line: {seg_path.name} or {json_path.name} was not "
+             f"written")
+    tracker = InstanceTracker()
+    tracker.load_from_json(str(json_path))
+    seg = np.asarray(open_zarr(str(seg_path)))
+    if tuple(tracker.shape3d) != crop.shape or seg.dtype != np.uint32 \
+            or not np.array_equal(seg, dense_fill(crop.shape,
+                                                  tracker.instances)):
+        fail("command line: the class zarr differs from a fill of the "
+             "tracker json")
+    print(f"command line: infer3d.main on a {crop.shape} zarr crop in "
+          f"{seconds:.3f} s (model load included); "
+          f"{len(tracker.instances)} instances; class zarr == fill of the "
+          f"json; group_pixels launches {launches}")
+    return launches
+
+
+def make_engine(model):
+    """The engine as run_inference3d builds it for both main paths."""
+    from empanada_torch.inference.fused import FusedStackEngine
+
+    return FusedStackEngine(
+        model, None, [1], label_divisor=20000, median_kernel_size=3,
+        nms_threshold=0.1, nms_kernel=3, confidence_thr=0.3, stuff_area=0,
+        device_norms=NORMS, pipeline_depth=8, device="cuda")
+
+
+def host_half(blocks, shape3d, axis_name="xy"):
+    """One axis's host half on its own (serial, one thread): run decode
+    + CCL, forward matching, backward matching, tracking and filters
+    over an engine pass's packed blocks (z_indices, padded slice shape,
+    packed array)."""
+    from empanada_torch.inference import patterns
+    from empanada_torch.inference.rle import runs_to_rle_seg, unpack_packed_runs
+
+    matchers = patterns.create_matchers([1], 20000, 0.25, 0.25)
+    stack = []
+    for z_indices, pad_shape, arr in blocks:
+        for j, z in enumerate(z_indices):
+            if z is None:
+                continue
+            s, e, v, shape = unpack_packed_runs(arr[j], pad_shape)
+            seg = runs_to_rle_seg(s, e, v, shape, [1], 20000, [1])
+            stack.append(patterns.apply_matchers(seg, matchers))
+    trackers = patterns.create_axis_trackers({axis_name: 0}, [1], 20000,
+                                             shape3d)
+    patterns.finish_axis(stack, matchers, trackers[axis_name], len(stack),
+                         500, 4)
+
+
 def phase_breakdown(model, vol):
-    """Where the main path's time goes (``--profile``): the engine alone
-    (device pipeline + one packed copy per block, no host matching), the
-    model forward and the postprocess of one block, and a torch.profiler
-    trace of the engine pass (device busy time by kernel)."""
+    """Where the stack main path's time goes (``--profile``): the engine
+    alone (device pipeline + one packed copy per block, no host
+    matching), the model forward and the postprocess of one block, and a
+    torch.profiler trace of the engine pass (device busy time by
+    kernel)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from empanada_torch.data import VolumeDataset
-    from empanada_torch.inference.fused import FusedStackEngine
 
-    engine = FusedStackEngine(
-        model, None, [1], label_divisor=20000, median_kernel_size=3,
-        nms_threshold=0.1, nms_kernel=3, confidence_thr=0.3, stuff_area=0,
-        device_norms={"mean": 0.57, "std": 0.12}, pipeline_depth=8,
-        device="cuda")
+    engine = make_engine(model)
     dataset = VolumeDataset(vol)
 
     def engine_pass():
@@ -485,42 +825,21 @@ def phase_breakdown(model, vol):
     for e in events[:12]:
         print(f"  {device_us(e) / 1e3:9.3f} ms  x{e.count:<5d} {e.key[:90]}")
 
-    # the host half on its own (serial, one thread): run decode + CCL,
-    # forward matching, backward matching, tracking and filters over the
-    # engine's packed blocks, under cProfile
+    # the host half on its own, timed and then under cProfile
     import cProfile
     import pstats
 
-    from empanada_torch.inference import patterns
-    from empanada_torch.inference.rle import runs_to_rle_seg, unpack_packed_runs
-
     blocks = [(z, pan.shape[-2:], np.asarray(packed))
               for z, pan, packed in engine.infer_blocks(dataset)]
-
-    def host_half():
-        matchers = patterns.create_matchers([1], 20000, 0.25, 0.25)
-        stack = []
-        for z_indices, pad_shape, arr in blocks:
-            for j, z in enumerate(z_indices):
-                if z is None:
-                    continue
-                s, e, v, shape = unpack_packed_runs(arr[j], pad_shape)
-                seg = runs_to_rle_seg(s, e, v, shape, [1], 20000, [1])
-                stack.append(patterns.apply_matchers(seg, matchers))
-        trackers = patterns.create_axis_trackers({"xy": 0}, [1], 20000,
-                                                 vol.shape)
-        patterns.finish_axis(stack, matchers, trackers["xy"], len(stack),
-                             500, 4)
-
     t0 = time.time()
-    host_half()
+    host_half(blocks, vol.shape)
     host_s = time.time() - t0
     n_runs = sum(int(arr[j, 0, 0]) for z, _, arr in blocks
                  for j, zz in enumerate(z) if zz is not None)
     print(f"breakdown: host half alone {host_s:.3f} s for "
           f"{vol.shape[0]} slices ({n_runs} foreground runs)")
     prof = cProfile.Profile()
-    prof.runcall(host_half)
+    prof.runcall(host_half, blocks, vol.shape)
     stats = pstats.Stats(prof).sort_stats("tottime")
     for (fname, line, func), (_, ncalls, tottime, cumtime, _) in sorted(
             stats.stats.items(), key=lambda kv: -kv[1][2])[:8]:
@@ -528,9 +847,62 @@ def phase_breakdown(model, vol):
               f"{Path(fname).name}:{line} {func}")
 
 
-def phase_content():
-    """Synthetic model on an ellipsoid: CUDA == CPU exactly, and the
-    instance is the ellipsoid."""
+def phase_breakdown_orthoplane(model, vol):
+    """Each axis of the orthoplane path on its own (``--profile``): the
+    engine alone over the axis's slices (no host matching), the model
+    forward of one block of that shape, and the axis's host half alone
+    (serial). Held beside the overlapped run's per-axis times, these
+    show how far the host threads slow the next axis's device stream."""
+    import torch
+
+    from empanada_torch.data import VolumeDataset
+
+    engine = make_engine(model)
+    for axis, name in enumerate(AXES):
+        dataset = VolumeDataset(vol, axis=axis)
+        n = len(dataset)
+
+        def engine_pass():
+            out = [(z, pan.shape[-2:], np.asarray(packed))
+                   for z, pan, packed in engine.infer_blocks(dataset)]
+            torch.cuda.synchronize()
+            return out
+
+        engine_pass()  # warm
+        t0 = time.time()
+        blocks = engine_pass()
+        engine_s = time.time() - t0
+        ph, pw = blocks[0][1]
+        bsz = len(blocks[0][0])
+        x = torch.from_numpy(np.random.default_rng(5).normal(
+            0, 1, (bsz, 1, ph, pw)).astype(np.float32)).cuda()
+        with torch.inference_mode():
+            fwd_ms = cuda_ms(lambda: model(x, interpolate_ins=False), reps=5,
+                             warmup=2)
+        t0 = time.time()
+        host_half(blocks, vol.shape, name)
+        host_s = time.time() - t0
+        n_runs = sum(int(arr[j, 0, 0]) for z, _, arr in blocks
+                     for j, zz in enumerate(z) if zz is not None)
+        print(f"breakdown orthoplane {name}: {n} slices padded to {ph}x{pw} "
+              f"in {len(blocks)} blocks of {bsz}: engine alone "
+              f"{engine_s:.3f} s = {n / engine_s:.2f} slices/s; "
+              f"model forward {fwd_ms:.3f} ms per block; host half alone "
+              f"{host_s:.3f} s ({n_runs} foreground runs)")
+
+
+def same_instances(a, b):
+    """Same labels, boxes, starts and runs."""
+    return list(a) == list(b) and all(
+        tuple(a[k]["box"]) == tuple(b[k]["box"])
+        and np.array_equal(a[k]["starts"], b[k]["starts"])
+        and np.array_equal(a[k]["runs"], b[k]["runs"]) for k in a)
+
+
+def phase_content(mode):
+    """Synthetic model on an ellipsoid, in stack or orthoplane mode
+    (pixel_vote_thr 2): CUDA == CPU exactly, and the instance is the
+    ellipsoid."""
     from empanada_torch.cli.infer3d import run_inference3d
     from empanada_torch.synthetic import SyntheticModule
 
@@ -538,22 +910,18 @@ def phase_content():
     zz, yy, xx = np.mgrid[: shape[0], : shape[1], : shape[2]]
     vol = (((zz - 6.0) ** 2 / 16 + (yy - 15.0) ** 2 / 64
             + (xx - 16.0) ** 2 / 49) <= 1.0).astype(np.float32)
-    kwargs = dict(labels=[1], thing_list=[1], mode="stack", qlen=3,
+    kwargs = dict(labels=[1], thing_list=[1], mode=mode, qlen=3,
                   label_divisor=100, block_size=4, padding_factor=16,
-                  max_centers=64, min_size=4, min_span=1, progress=False)
+                  max_centers=64, min_size=4, min_span=1, progress=False,
+                  pixel_vote_thr=2)
     gpu = run_inference3d(SyntheticModule(), vol, device="cuda", **kwargs)
     cpu = run_inference3d(SyntheticModule(), vol, device="cpu", **kwargs)
     ins_g, ins_c = gpu[1].instances, cpu[1].instances
     if not ins_c:
-        fail("content: no instance found")
-    if sorted(ins_g) != sorted(ins_c):
-        fail(f"content: CUDA labels {sorted(ins_g)} != CPU {sorted(ins_c)}")
-    for label, attrs in ins_c.items():
-        other = ins_g[label]
-        if tuple(attrs["box"]) != tuple(other["box"]) \
-                or not np.array_equal(attrs["starts"], other["starts"]) \
-                or not np.array_equal(attrs["runs"], other["runs"]):
-            fail(f"content: instance {label} differs between CUDA and CPU")
+        fail(f"content ({mode}): no instance found")
+    if not same_instances(ins_g, ins_c):
+        fail(f"content ({mode}): the CUDA instances (labels "
+             f"{sorted(ins_g)}) differ from the CPU's ({sorted(ins_c)})")
     truth = np.flatnonzero(vol.reshape(-1) > 0.5)
     best = 0.0
     for attrs in ins_g.values():
@@ -561,18 +929,21 @@ def phase_content():
                               zip(attrs["starts"], attrs["runs"])])
         inter = len(np.intersect1d(vox, truth))
         best = max(best, inter / (len(vox) + len(truth) - inter))
-    print(f"content: {len(ins_g)} instance(s), CUDA == CPU exactly, "
-          f"IoU with the ellipsoid {best:.4f}")
+    print(f"content ({mode}): {len(ins_g)} instance(s), CUDA == CPU "
+          f"exactly, IoU with the ellipsoid {best:.4f}")
     if best < 0.9:
-        fail(f"content: best IoU with the ellipsoid {best:.4f} < 0.9")
+        fail(f"content ({mode}): best IoU with the ellipsoid {best:.4f} "
+             f"< 0.9")
 
 
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", action="store_true",
-                        help="also break the main path's time down "
-                             "(engine alone, forward, postprocess, "
-                             "profiler trace)")
+                        help="also break the main paths' time down "
+                             "(stack: engine alone, forward, postprocess, "
+                             "profiler trace, host half; orthoplane: "
+                             "engine, forward and host half alone per "
+                             "axis; consensus at a product-like count)")
     args = parser.parse_args()
 
     root = Path(__file__).resolve().parent
@@ -591,11 +962,28 @@ def main():
     phase_build()
     row = phase_group_kernel()
     launches, model, vol = phase_main_path()
-    row["launches"] = launches["group_pixels"]
     if args.profile:
         phase_breakdown(model, vol)
-    del model
-    phase_content()
+    ortho_launches, consensus, ortho_vol = phase_orthoplane(model)
+    if args.profile:
+        phase_breakdown_orthoplane(model, ortho_vol)
+        phase_consensus_at_density()
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_fill_store(consensus, ortho_vol.shape, tmp)
+        cli_launches = phase_command_line(model, ortho_vol, tmp)
+    del model, consensus
+    # each main path's run had the counts set to 0 just before it and
+    # read just after (launches_by_path); "launches" is their sum over the
+    # stack and the orthoplane main paths and belongs to neither alone
+    row["launches"] = launches["group_pixels"] + ortho_launches["total"]
+    row["launches_is"] = "stack + orthoplane (the sum of two runs)"
+    row["launches_by_path"] = {
+        "stack": launches["group_pixels"],
+        "orthoplane": ortho_launches["total"],
+        "orthoplane_by_axis": ortho_launches["per_axis"],
+        "command_line": cli_launches}
+    for mode in ("stack", "orthoplane"):
+        phase_content(mode)
 
     print("kernels: group_pixels")
     print(json.dumps({"kernels": [row]}))

@@ -1,22 +1,28 @@
-"""Stack-mode 3D inference (``run_inference3d``).
+"""Orthoplane / stack 3D inference CLI.
 
-Per-axis slice inference with median filtering -> forward/backward RLE
-matching -> instance tracking -> (stack mode) the single axis as the
-result. The model forward + panoptic postprocess + run extraction run
-on the device in blocks (inference/fused.py); the matching runs on host
-threads overlapped with the device. Orthoplane consensus and the
-command-line ``main`` (which needs the export loader) are later slices
-of the port.
+The canonical product flow (reference scripts/pdl_inference3d.py:20-241):
+per-axis slice inference with median filtering -> forward/backward RLE
+matching -> instance tracking -> cross-axis consensus -> chunked volume
+fill. Exposes the reference CLI's flag surface.
+
+The model forward + panoptic postprocess + run extraction run on the
+device in blocks (inference/fused.py); RLE decoding and matching run on
+host threads overlapped with the device
+(inference/patterns.ForwardMatcher); the filled output is a zarr-v2
+array.
 """
 
 from __future__ import annotations
 
+import argparse
+import math
+import os
 import threading
 import time
 
 import numpy as np
 
-__all__ = ["run_inference3d"]
+__all__ = ["main", "run_inference3d"]
 
 
 def _run_noexcept(fn, errors):
@@ -25,6 +31,91 @@ def _run_noexcept(fn, errors):
         fn()
     except BaseException as e:  # re-raised on the main thread after join
         errors.append(e)
+
+
+def parse_args(argv=None):
+    parser = argparse.ArgumentParser(
+        description="Runs empanada_torch model inference.")
+    parser.add_argument("config", type=str,
+                        help="Path to an exported model descriptor yaml")
+    parser.add_argument("-infer-config", type=str, dest="infer_config",
+                        default=None,
+                        help="Inference recipe yaml (configs/median_"
+                             "inference_*.yaml, BASE-inherited); its keys"
+                             " become flag defaults, explicit flags win")
+    parser.add_argument("volume_path", type=str,
+                        help="Path to a zarr/tiff/npy volume")
+    parser.add_argument("-data-key", type=str, default=None,
+                        help="Array key within a zarr group")
+    parser.add_argument("-mode", type=str, choices=["orthoplane", "stack"],
+                        default="orthoplane")
+    parser.add_argument("-qlen", type=int, default=3,
+                        choices=[1, 3, 5, 7, 9, 11])
+    parser.add_argument("-nmax", type=int, dest="label_divisor",
+                        default=20000)
+    parser.add_argument("-seg-thr", type=float, dest="seg_thr", default=0.3)
+    parser.add_argument("-nms-thr", type=float, dest="nms_thr", default=0.1)
+    parser.add_argument("-nms-kernel", type=int, dest="nms_kernel", default=3)
+    parser.add_argument("-iou-thr", type=float, dest="iou_thr", default=0.25)
+    parser.add_argument("-ioa-thr", type=float, dest="ioa_thr", default=0.25)
+    parser.add_argument("-pixel-vote-thr", type=int, dest="pixel_vote_thr",
+                        default=2, choices=[1, 2, 3])
+    parser.add_argument("-cluster-iou-thr", type=float,
+                        dest="cluster_iou_thr", default=0.75)
+    parser.add_argument("-min-size", type=int, dest="min_size", default=500)
+    parser.add_argument("-min-span", type=int, dest="min_span", default=4)
+    parser.add_argument("-downsample-f", type=int, dest="downsample_f",
+                        default=1)
+    parser.add_argument("-max-centers", type=int, dest="max_centers",
+                        default=256,
+                        help="Static per-slice instance budget")
+    parser.add_argument("-block-size", type=int, dest="block_size",
+                        default=None,
+                        help="Slices per fused device dispatch (default: "
+                             "chosen from the slice size)")
+    parser.add_argument("-n-devices", type=int, dest="n_devices", default=0,
+                        help="Shard slice blocks over N devices "
+                             "(0 = single device; not ported yet)")
+    parser.add_argument("-pipeline-depth", type=int, dest="pipeline_depth",
+                        default=8,
+                        help="Device blocks kept in flight past the "
+                             "consumer")
+    parser.add_argument("--one-view", action="store_true")
+    parser.add_argument("--fine-boundaries", action="store_true")
+    parser.add_argument("--quantized", action="store_true",
+                        help="load the int8 artifact from the descriptor "
+                             "(not ported yet)")
+    parser.add_argument("--resident", action="store_true",
+                        help="Device-resident volume path (one upload, "
+                             "blocks sliced on device; not ported yet)")
+    parser.add_argument("--use-cpu", action="store_true",
+                        help="Run inference on the CPU instead of CUDA")
+    parser.add_argument("--save-panoptic", action="store_true")
+
+    # recipe yaml (reference per-dataset configs, e.g.
+    # projects/mitonet/configs/mmm_median_inference_lucchi.yaml) provides
+    # flag DEFAULTS; anything the user types explicitly still wins
+    import sys
+
+    # real two-pass parse: a mini parser with ONLY -infer-config (handles
+    # "=value", prefix abbreviations, missing-value errors), then the
+    # recipe's keys become defaults on the main parser; explicit flags win
+    scan = list(sys.argv[1:] if argv is None else argv)
+    pre = argparse.ArgumentParser(add_help=False)
+    pre.add_argument("-infer-config", type=str, dest="infer_config",
+                     default=None)
+    pre_ns, _ = pre.parse_known_args(scan)
+    if pre_ns.infer_config is not None:
+        from empanada_torch.config import load_config
+
+        recipe = load_config(pre_ns.infer_config)
+        recipe.pop("BASE", None)
+        dests = {a.dest for a in parser._actions}
+        unknown = set(recipe) - dests
+        if unknown:
+            raise SystemExit(f"-infer-config: unknown keys {sorted(unknown)}")
+        parser.set_defaults(**recipe)
+    return parser.parse_args(argv)
 
 
 def run_inference3d(
@@ -38,24 +129,19 @@ def run_inference3d(
     resident=False, stats=None, max_runs=None, pipeline_depth=8,
     device=None,
 ):
-    """3D inference; returns {class_id: InstanceTracker}.
+    """Full 3D inference; returns {class_id: consensus InstanceTracker}.
 
-    ``model``: an ``nn.Module`` or a (module, state_dict) pair (the
-    state_dict may be None). ``device``: CUDA unless named; raises
-    without a card when none is named. ``mode="stack"`` only:
-    orthoplane, ``mesh`` and ``resident`` raise NotImplementedError.
+    ``model``: an ``nn.Module`` (as ``export.load_exported_model``
+    returns) or a (module, state_dict) pair (the state_dict may be
+    None). ``device``: CUDA unless named; raises without a card when
+    none is named. The hot path is the fused blocked engine
+    (inference/fused.py): one device dispatch per ``block_size`` slices.
+    ``mesh`` and ``resident`` raise NotImplementedError.
     """
-    import os
-
     from empanada_torch.data import VolumeDataset
     from empanada_torch.inference import patterns
     from empanada_torch.inference.fused import FusedStackEngine
 
-    if mode != "stack":
-        raise NotImplementedError(
-            "orthoplane mode is the next slice of the port (cross-axis "
-            "consensus, inference/consensus.py + core/fill.py); use "
-            "mode='stack'")
     if mesh is not None or resident:
         raise NotImplementedError(
             "the mesh and device-resident paths are not ported")
@@ -78,10 +164,12 @@ def run_inference3d(
                 "{'mean':..,'std':..} or a host-side tfs")
 
     shape = tuple(volume.shape)
-    axes = {"xy": 0}
+    axes = {"xy": 0} if mode == "stack" else {"xy": 0, "xz": 1, "yz": 2}
     trackers = patterns.create_axis_trackers(
         axes, labels, label_divisor, shape)
 
+    # ONE engine for all axes: the weights go to the device once, and
+    # everything that depends on the slice shape is derived per call
     engine = FusedStackEngine(
         module, variables, thing_list,
         block_size=block_size,
@@ -119,16 +207,23 @@ def run_inference3d(
                 dataset, upsampling=downsample_f):
             fm.put_block(z_indices, pan_block, packed)
             if pan_stack is not None:
+                # blocks carry padded maps; crop to this axis's true
+                # slice shape
                 block = np.asarray(pan_block)[..., :sl_h, :sl_w]
                 pan_stack.extend(block[j] for j, z in enumerate(z_indices)
                                  if z is not None)
 
         # the matcher tail (queue drain, backward matching, tracking,
-        # filters) is host work: run it on a thread so a next axis's
-        # device stream could start at once; consensus waits for joins
+        # filters) is host work: run it on a thread so the NEXT axis's
+        # device stream starts the moment this axis's last block is
+        # dispatched. Identical to the serial composition: each axis
+        # owns its matchers/trackers and consensus waits for every join.
+        forward_seconds = time.time() - t_axis
+
         def _finish(matchers=matchers,
                     axis_trackers=trackers[axis_name], n=n,
-                    axis_name=axis_name, fm=fm, t_axis=t_axis):
+                    axis_name=axis_name, fm=fm, t_axis=t_axis,
+                    forward_seconds=forward_seconds):
             rle_stack = fm.finish()
             assert len(rle_stack) == n, (len(rle_stack), n)
             patterns.finish_axis(rle_stack, matchers, axis_trackers, n,
@@ -136,6 +231,9 @@ def run_inference3d(
             if stats is not None:
                 stats.setdefault("axes", {})[axis_name] = {
                     "slices": n,
+                    # axis start -> last block dispatched and handed to
+                    # the matcher; "seconds" runs on to the tail's end
+                    "forward_seconds": round(forward_seconds, 3),
                     "seconds": round(time.time() - t_axis, 3),
                     "overflow_slices": fm.overflow_count,
                     "instances_matched": sum(
@@ -149,7 +247,7 @@ def run_inference3d(
         finish_threads.append(th)
         if progress:
             print(f"[{axis_name}] {n} slices forward in "
-                  f"{time.time() - t_axis:.1f}s")
+                  f"{forward_seconds:.1f}s")
         if pan_stack is not None:
             os.makedirs(save_panoptic_dir, exist_ok=True)
             np.save(os.path.join(save_panoptic_dir,
@@ -171,3 +269,78 @@ def run_inference3d(
         stats["instances_3d"] = {
             c: len(t.instances) for c, t in consensus.items()}
     return consensus
+
+
+def _refuse_unported(args):
+    """Exit on the flags whose paths this package does not have yet."""
+    for flag, on in (("-n-devices", args.n_devices != 0),
+                     ("--resident", args.resident),
+                     ("--quantized", args.quantized)):
+        if on:
+            raise SystemExit(
+                f"{flag}: not ported yet in empanada_torch (single-device "
+                "float32 streaming inference only)")
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    assert math.log2(args.downsample_f).is_integer(), \
+        "downsample factor must be a power of 2"
+    _refuse_unported(args)
+
+    from empanada_torch.data.zarr_store import create_zarr, read_volume
+    from empanada_torch.export import load_exported_model
+    from empanada_torch.inference import patterns
+
+    device = "cpu" if args.use_cpu else None
+    model, desc = load_exported_model(args.config, device=device)
+    path = args.volume_path
+    if args.data_key and os.path.isdir(path):
+        # reference supports comma-separated keys: use the first that
+        # resolves to an array in the group
+        for key in args.data_key.split(","):
+            candidate = os.path.join(path, key.strip())
+            if os.path.exists(os.path.join(candidate, ".zarray")):
+                path = candidate
+                break
+        else:
+            path = os.path.join(path, args.data_key.split(",")[0])
+    volume = read_volume(path)
+    print(f"volume {volume.shape} from {args.volume_path}")
+
+    consensus = run_inference3d(
+        model, volume,
+        labels=desc["labels"], thing_list=desc["thing_list"],
+        class_names=desc.get("class_names"),
+        mode=args.mode, qlen=args.qlen, label_divisor=args.label_divisor,
+        seg_thr=args.seg_thr, nms_thr=args.nms_thr,
+        nms_kernel=args.nms_kernel, iou_thr=args.iou_thr,
+        ioa_thr=args.ioa_thr, pixel_vote_thr=args.pixel_vote_thr,
+        cluster_iou_thr=args.cluster_iou_thr, min_size=args.min_size,
+        min_span=args.min_span, downsample_f=args.downsample_f,
+        one_view=args.one_view, fine_boundaries=args.fine_boundaries,
+        padding_factor=desc.get("padding_factor", 128),
+        max_centers=args.max_centers,
+        norms=desc.get("norms"),
+        block_size=args.block_size,
+        pipeline_depth=args.pipeline_depth,
+        save_panoptic_dir=(
+            os.path.dirname(os.path.abspath(args.volume_path))
+            if args.save_panoptic else None),
+        device=device,
+    )
+
+    # fill each class consensus into a zarr next to the input
+    base = args.volume_path.rstrip("/").rsplit(".zarr", 1)[0]
+    for class_id, tracker in consensus.items():
+        out_path = f"{base}_{args.mode}_seg_class{class_id}.zarr"
+        out = create_zarr(out_path, tuple(volume.shape),
+                          dtype=np.uint32, overwrite=True)
+        patterns.fill_volume(out, tracker.instances, processes=4)
+        tracker.write_to_json(f"{base}_{args.mode}_class{class_id}.json")
+        print(f"class {class_id}: {len(tracker.instances)} instances "
+              f"-> {out_path}")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,9 +1,8 @@
 """Reusable inference pipeline pieces (reference inference/patterns.py:15-350).
 
-Host half of the stack-mode path, copied from the JAX package's numpy
+Host half of the inference path, copied from the JAX package's numpy
 code: forward matching on a worker thread, backward matching, tracking,
-filters and the stack branch of the consensus. The orthoplane
-consensus and volume fill are a later slice of the port.
+filters, the cross-axis consensus and the volume fill.
 
 The reference overlaps postprocessing with GPU compute via a
 multiprocessing.Queue worker process that receives dense pan_segs. Here the
@@ -25,7 +24,12 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
+from empanada_torch.core.fill import chunked_fill_instances, numpy_fill_instances
 from empanada_torch.inference import filters as _filters_mod
+from empanada_torch.inference.consensus import (
+    merge_objects_from_trackers,
+    merge_semantic_from_trackers,
+)
 from empanada_torch.inference.matcher import RLEMatcher
 from empanada_torch.inference.rle import (
     pan_seg_to_rle_seg,
@@ -39,6 +43,7 @@ __all__ = [
     "create_axis_trackers",
     "apply_matchers",
     "ForwardMatcher",
+    "forward_matching",
     "backward_matching",
     "update_trackers",
     "finish_tracking",
@@ -46,6 +51,10 @@ __all__ = [
     "finish_axis",
     "build_consensus",
     "get_axis_trackers_by_class",
+    "create_instance_consensus",
+    "create_semantic_consensus",
+    "fill_volume",
+    "fill_panoptic_volume",
 ]
 
 
@@ -248,6 +257,15 @@ class ForwardMatcher:
         return self.rle_stack
 
 
+def forward_matching(pan_segs, matchers, labels, label_divisor, thing_list):
+    """Synchronous convenience wrapper over ForwardMatcher for an iterable
+    of pan_segs; returns the rle_stack."""
+    fm = ForwardMatcher(matchers, labels, label_divisor, thing_list)
+    for pan_seg in pan_segs:
+        fm.put(pan_seg)
+    return fm.finish()
+
+
 def backward_matching(rle_stack, matchers, axis_len):
     """Generator matching instances backward through the stack with
     assign_new=False (reference patterns.py:102-121). Yields
@@ -300,14 +318,30 @@ def finish_axis(rle_stack, matchers, axis_trackers, n, min_size, min_span):
 def build_consensus(trackers, labels, thing_list, *, mode="orthoplane",
                     pixel_vote_thr=2, cluster_iou_thr=0.75, one_view=False,
                     min_size=500, min_span=4):
-    """Per-class consensus; stack mode passes the single axis through.
-    The cross-axis (orthoplane) consensus is a later slice of the port."""
-    if mode != "stack":
-        raise NotImplementedError(
-            "orthoplane consensus is not ported yet (next slice: "
-            "inference/consensus.py and core/fill.py)")
-    return {class_id: get_axis_trackers_by_class(trackers, class_id)[0]
-            for class_id in labels}
+    """Per-class cross-axis consensus (reference pdl_inference3d.py:
+    196-226): instance consensus (+ the reference's post-consensus
+    re-filter) for thing classes, pixel-vote semantic consensus for
+    stuff; stack mode passes the single axis through."""
+    consensus = {}
+    for class_id in labels:
+        class_trackers = get_axis_trackers_by_class(trackers, class_id)
+        if mode == "stack":
+            consensus[class_id] = class_trackers[0]
+            continue
+        if class_id in thing_list:
+            consensus[class_id] = create_instance_consensus(
+                class_trackers, pixel_vote_thr, cluster_iou_thr,
+                bypass=one_view)
+            # voted intersections can fall below the size/span thresholds
+            # even when every axis passed (pdl_inference3d.py:218-219)
+            apply_filters(consensus[class_id], [
+                {"name": "remove_small_objects", "min_size": min_size},
+                {"name": "remove_pancakes", "min_span": min_span},
+            ])
+        else:
+            consensus[class_id] = create_semantic_consensus(
+                class_trackers, pixel_vote_thr)
+    return consensus
 
 
 def get_axis_trackers_by_class(trackers, class_id):
@@ -317,3 +351,42 @@ def get_axis_trackers_by_class(trackers, class_id):
         for tracker in axis_trackers
         if tracker.class_id == class_id
     ]
+
+
+def create_instance_consensus(class_trackers, pixel_vote_thr=2,
+                              cluster_iou_thr=0.75, bypass=False):
+    """Cross-axis instance consensus -> new tracker
+    (reference patterns.py:168-186)."""
+    first = class_trackers[0]
+    consensus_tracker = InstanceTracker(
+        first.class_id, first.label_divisor, first.shape3d, "xy")
+    consensus_tracker.instances = merge_objects_from_trackers(
+        class_trackers, pixel_vote_thr, cluster_iou_thr, bypass)
+    consensus_tracker.finished = True
+    return consensus_tracker
+
+
+def create_semantic_consensus(class_trackers, pixel_vote_thr=2):
+    """Cross-axis semantic vote -> new tracker
+    (reference patterns.py:188-202)."""
+    first = class_trackers[0]
+    consensus_tracker = InstanceTracker(
+        first.class_id, first.label_divisor, first.shape3d, "xy")
+    consensus_tracker.instances = merge_semantic_from_trackers(
+        class_trackers, pixel_vote_thr)
+    consensus_tracker.finished = True
+    return consensus_tracker
+
+
+def fill_volume(volume, instances, processes=4):
+    """Fill a numpy array or chunked store with RLE instances, in place
+    (reference patterns.py:204-213)."""
+    if isinstance(volume, np.ndarray):
+        numpy_fill_instances(volume, instances)
+    else:
+        chunked_fill_instances(volume, instances, processes=processes)
+
+
+def fill_panoptic_volume(volume, trackers, processes=4):
+    for tracker in trackers:
+        fill_volume(volume, tracker.instances, processes)

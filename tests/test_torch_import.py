@@ -1,5 +1,6 @@
 """The port stands alone: empanada_torch and chip_smoke.py import nothing
-of JAX or the JAX package, entry points never fall back to the CPU on
+of JAX or the JAX package (and PyYAML only inside the functions that
+read or write a descriptor), entry points never fall back to the CPU on
 their own, and the CUDA kernel path is taken only for CUDA tensors."""
 
 import pkgutil
@@ -17,6 +18,12 @@ from empanada_torch.ops import group
 
 ROOT = Path(__file__).resolve().parents[1]
 BLOCKED = ("jax", "flax", "optax", "empanada_tpu")
+# modules of the orthoplane / loader / command-line slice
+NEW_MODULES = ("empanada_torch.__main__", "empanada_torch.config",
+               "empanada_torch.export", "empanada_torch.core.fill",
+               "empanada_torch.data.zarr_store",
+               "empanada_torch.inference.consensus",
+               "empanada_torch.cli.infer3d")
 
 
 def _port_sources():
@@ -28,16 +35,22 @@ def test_every_module_imports_with_jax_blocked():
     names = [m.name for m in pkgutil.walk_packages(
         empanada_torch.__path__, "empanada_torch.")]
     assert "empanada_torch.inference.fused" in names
+    assert set(NEW_MODULES) <= set(names)
+    blocked = BLOCKED + ("yaml",)
     code = (
         "import sys\n"
-        f"for name in {BLOCKED!r}:\n"
+        f"for name in {blocked!r}:\n"
         "    sys.modules[name] = None\n"
         "import importlib\n"
         f"for name in {['empanada_torch'] + names!r}:\n"
         "    importlib.import_module(name)\n"
         "import chip_smoke\n"
-        f"assert not any(m.split('.')[0] in {BLOCKED!r} and sys.modules[m]"
-        " for m in list(sys.modules))\n")
+        f"assert not any(m.split('.')[0] in {blocked!r} and sys.modules[m]"
+        " for m in list(sys.modules))\n"
+        # the flag surface parses without PyYAML as long as no recipe is
+        # named
+        "from empanada_torch.cli.infer3d import parse_args\n"
+        "assert parse_args(['m.yaml', 'v.zarr']).mode == 'orthoplane'\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
@@ -51,8 +64,9 @@ def test_sources_never_import_jax_or_the_jax_package():
     assert offenders == []
 
 
-def test_entry_points_raise_without_cuda(monkeypatch):
-    from empanada_torch.cli.infer3d import run_inference3d
+def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
+    from empanada_torch.cli.infer3d import main, run_inference3d
+    from empanada_torch.export import load_exported_model
     from empanada_torch.inference.fused import FusedStackEngine
     from empanada_torch.models import create_model
     from empanada_torch.synthetic import SyntheticModule
@@ -66,6 +80,23 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         run_inference3d(SyntheticModule(), np.zeros((4, 16, 16), np.float32),
                         labels=[1], thing_list=[1], mode="stack")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run_inference3d(SyntheticModule(), np.zeros((4, 16, 16), np.float32),
+                        labels=[1], thing_list=[1])  # orthoplane, the default
+    with pytest.raises(RuntimeError, match="CUDA"):
+        load_exported_model(str(tmp_path / "model.yaml"))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        main([str(tmp_path / "model.yaml"), str(tmp_path / "volume.npy")])
+
+
+@pytest.mark.parametrize("kwargs", [{"mesh": object()}, {"resident": True}])
+def test_mesh_and_resident_are_refused_by_name(kwargs):
+    from empanada_torch.cli.infer3d import run_inference3d
+    from empanada_torch.synthetic import SyntheticModule
+
+    with pytest.raises(NotImplementedError, match="mesh and device-resident"):
+        run_inference3d(SyntheticModule(), np.zeros((4, 16, 16), np.float32),
+                        labels=[1], thing_list=[1], device="cpu", **kwargs)
 
 
 def test_parity_numerics_disable_tf32():

@@ -146,12 +146,6 @@ def test_run_inference3d_stack_matches_jax(volume):
     assert stats["axes"]["xy"]["slices"] == len(vol)
 
 
-def test_orthoplane_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="orthoplane"):
-        run_inference3d(SyntheticModule(), _ellipsoid(), labels=[1],
-                        thing_list=[1], mode="orthoplane", device="cpu")
-
-
 def test_tiny_mitonet_stack_end_to_end_on_cpu():
     """The tiny MitoNet from a seeded init runs the whole stack path on
     the CPU: plain grouping (no kernel launch), finite maps, a tracker."""
