@@ -8,8 +8,14 @@ failure exits non-zero before the final line):
 
 1. device: require CUDA; print the card's name and power limit;
 2. build every hand-written kernel from ``empanada_torch/csrc`` (one
-   nvcc per source, all started together) and print ``ptxas -v``;
-3. each kernel against its plain PyTorch version on the card (exact
+   nvcc per source, all started together) and the C++ host core from
+   ``empanada_torch/core/_native/core.cpp`` (g++), and print the
+   compiler, the flags and the library's path;
+3. the host core: each of its 14 entry points against the port's numpy
+   path on seeded inputs (exact equality of every integer output; an
+   input the native path has to decline must leave it uncalled and give
+   the same answer), one line per entry point with native and numpy ms;
+   then each kernel against its plain PyTorch version on the card (exact
    integer equality) at the stack path's shape, at the fine-boundary
    and dense shapes and at the blocks the orthoplane path's three axes
    give it (derived from its volume), then timings: the kernel's device time (torch.profiler), the
@@ -18,12 +24,16 @@ failure exits non-zero before the final line):
 4. the stack main path at full width: MitoNet (PanopticBiFPNPR on
    regnety_6p4gf) from a seeded init through
    ``run_inference3d(mode="stack")`` on a seeded uint8 volume, with the
-   kernel launch counts read around that run; plus the full-width model
-   forward on CUDA against the CPU on a small input;
+   kernel launch counts and the host core's call counts read around
+   that run (a main path that ran with the numpy host half fails);
+   plus the full-width model forward on CUDA against the CPU on a small
+   input;
 5. the orthoplane main path at full width: the same model through
    ``run_inference3d(mode="orthoplane")`` on a seeded uint8 volume with
    three different sides, none a multiple of 128: per-axis times and
-   kernel launches, the consensus time, the 3D instances;
+   kernel launches, the host core's call counts, the consensus time,
+   the 3D instances; then the same run with the numpy host half, whose
+   trackers must equal the native run's, RLE for RLE;
 6. fill and store: the consensus filled into a zarr store, read back
    and held against a dense numpy fill;
 7. the command line: the model exported to a descriptor, a crop of the
@@ -183,12 +193,24 @@ def phase_device():
 
 
 def phase_build():
-    from empanada_torch import cuda_build
+    """Build the CUDA kernels and the C++ host core (and load it); either
+    failure raises and ends the run."""
+    from empanada_torch import cuda_build, native_build
+    from empanada_torch.core import native
 
     t0 = time.time()
     libs = cuda_build.build_all()
     print(f"built {len(libs)} kernel(s) in {time.time() - t0:.1f} s: "
           f"{', '.join(sorted(libs))}")
+    t0 = time.time()
+    path = native_build.build()
+    if native.get_lib() is None:
+        fail("the numpy host half is asked for (EMPANADA_TORCH_NO_NATIVE): "
+             "the main paths must run with the C++ host core")
+    print(f"built the host core in {time.time() - t0:.1f} s: "
+          f"{native_build.compiler()} {' '.join(native_build.CXX_FLAGS)} "
+          f"{native_build.SOURCE} -> {path}; "
+          f"{len(native.ENTRY_POINTS)} entry points bound")
 
 
 def group_inputs(rng, shape, kind, n_valid=None):
@@ -309,6 +331,205 @@ def group_timing(c, v, o, step):
     return row
 
 
+def best_ms(fn, reps):
+    """(fn()'s result, the least host milliseconds of reps calls)."""
+    best = float("inf")
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        out = fn()
+        best = min(best, (time.perf_counter() - t0) * 1e3)
+    return out, best
+
+
+def same_nested(a, b):
+    """Exact equality of nested dicts / tuples / lists of arrays and
+    numbers."""
+    if isinstance(a, dict):
+        return isinstance(b, dict) and list(a) == list(b) and all(
+            same_nested(a[k], b[k]) for k in a)
+    if isinstance(a, (tuple, list)):
+        return isinstance(b, (tuple, list)) and len(a) == len(b) and all(
+            same_nested(x, y) for x, y in zip(a, b))
+    a, b = np.asarray(a), np.asarray(b)
+    return a.shape == b.shape and bool(np.array_equal(a, b))
+
+
+def phase_host_core(trackers):
+    """Each entry point of the C++ host core against the port's numpy
+    path, through the function of the host half that calls it, on seeded
+    inputs at the sizes the dense paths give it: the ~1350-instance views
+    of ``density_trackers`` (boxes, RLEs, ranges), a 256x384 label image
+    (the xy axis's padded slice) and a (16, 64, 96) label volume. Every
+    output must be exactly equal (pairs of boxes compared sorted: the
+    two paths emit them in different orders). A "declines" case gives
+    the native path an input it must not take (non-canonical lists,
+    float boxes, a dtype the fill does not cover): the entry point has
+    to stay uncalled and the answer has to be the same. Prints one line
+    per case: native ms (least of 3) beside numpy ms (one call)."""
+    from empanada_torch.core import boxes, ccl, ccl3d, fill, native, ranges, rle
+    from empanada_torch.inference import matcher
+
+    rng = np.random.default_rng(7)
+    shape = tuple(trackers[0].shape3d)
+    views = [list(t.instances.values()) for t in trackers]
+    a, b = views[0], views[1]
+    boxes_a = np.asarray([i["box"] for i in a], np.int64)
+    boxes_b = np.asarray([i["box"] for i in b], np.int64)
+    rows, cols, _, _ = boxes.box_iou_pairs(boxes_a, boxes_b)
+    sr_a = [i["starts"] for i in a], [i["runs"] for i in a]
+    sr_b = [i["starts"] for i in b], [i["runs"] for i in b]
+
+    def as_ranges(inst):
+        return np.stack([inst["starts"], inst["starts"] + inst["runs"]],
+                        axis=1)
+
+    def reverse(inst):
+        return dict(inst, starts=inst["starts"][::-1].copy(),
+                    runs=inst["runs"][::-1].copy())
+
+    def strip(out):
+        if isinstance(out, list):
+            return [strip(o) for o in out]
+        return {k: v for k, v in out.items() if k != "_canon"}
+
+    def sorted_pairs(out):
+        order = np.lexsort((out[1], out[0]))
+        return tuple(o[order] for o in out)
+
+    lists = [as_ranges(i) for i in a[:400]]
+    covered = ranges.concat_sort_ranges(lists + [as_ranges(i)
+                                                 for i in b[:400]])
+    everything = [ranges.join_ranges([as_ranges(i) for i in v])
+                  for v in views[:2]]
+    votes = [as_ranges(i) for v in views for i in v[:60]]
+    group = a[:8] + b[:8]
+    groups = [[views[0][k], views[1][k], views[2][k]]
+              for k in range(min(300, *map(len, views)))]
+    image = (rng.integers(1, 3, (256, 384))
+             * (rng.random((256, 384)) < 0.55)).astype(np.int32)
+    s, e, v = ccl.image_to_runs(image)
+    image_runs = s[v != 0], e[v != 0], v[v != 0]
+    volume = (rng.integers(1, 3, (16, 64, 96))
+              * (rng.random((16, 64, 96)) < 0.35)).astype(np.int32)
+    instances = trackers[0].instances
+    wide = _wide_boxes(rng, 300)
+
+    # (entry points, what, function, canonical form, declines)
+    keep = (lambda out: out)
+    cases = [
+        (["coverage_ranges"], f"coverage of {len(covered)} ranges, thr 2",
+         lambda: ranges._coverage_ranges(covered, 2), keep, False),
+        (["ranges_intersection"],
+         f"{len(everything[0])} x {len(everything[1])} ranges",
+         lambda: ranges.ranges_intersection(*everything), keep, False),
+        (["pair_intersections"],
+         f"{len(rows)} box-screened pairs of {len(a)} x {len(b)} instances",
+         lambda: rle.rle_pairwise_intersections(*sr_a, *sr_b, rows, cols),
+         keep, False),
+        (["kway_merge_ranges"], f"{len(lists)} start-sorted lists",
+         lambda: ranges.concat_sort_ranges(lists), keep, False),
+        (["kway_merge_ranges"], "declines: one list unsorted",
+         lambda: ranges.concat_sort_ranges([lists[0][::-1]] + lists[1:]),
+         keep, True),
+        (["kway_vote"], f"vote 2 of {len(votes)} canonical lists",
+         lambda: ranges.vote_by_ranges(votes, 2), keep, False),
+        (["kway_vote"], "declines: one list unsorted",
+         lambda: ranges.vote_by_ranges([votes[0][::-1]] + votes[1:], 2),
+         keep, True),
+        (["kway_union_sr"], f"union of {len(group)} instances",
+         lambda: matcher.merge_attrs_many(group), strip, False),
+        (["kway_union_sr"], "declines: one instance unsorted",
+         lambda: matcher.merge_attrs_many([reverse(group[0])] + group[1:]),
+         strip, True),
+        (["kway_union_batch"], f"{len(groups)} groups of 3 instances",
+         lambda: matcher.merge_attrs_batch(groups), strip, False),
+        (["kway_union_batch"], "declines: one instance unsorted",
+         lambda: matcher.merge_attrs_batch(
+             [[reverse(groups[0][0])] + groups[0][1:]] + groups[1:]),
+         strip, True),
+        (["rle_union"], "two canonical instances",
+         lambda: rle.merge_rles(a[0]["starts"], a[0]["runs"],
+                                b[0]["starts"], b[0]["runs"]), keep, False),
+        (["rle_union"], "declines: first instance unsorted",
+         lambda: rle.merge_rles(a[0]["starts"][::-1], a[0]["runs"][::-1],
+                                b[0]["starts"], b[0]["runs"]), keep, True),
+        (["box_overlap_pairs"],
+         f"{len(a)} x {len(b)} 3D boxes = {len(a) * len(b)} candidate pairs",
+         lambda: boxes.box_iou_pairs(boxes_a, boxes_b), sorted_pairs, False),
+        (["box_overlap_pairs"], f"{len(a)} 3D boxes against themselves",
+         lambda: boxes.box_iou_pairs(boxes_a), sorted_pairs, False),
+        (["box_overlap_pairs"],
+         f"{len(wide)} boxes that all overlap (the buffer grows)",
+         lambda: boxes.box_iou_pairs(wide), sorted_pairs, False),
+        (["box_overlap_pairs"], "declines: float boxes",
+         lambda: boxes.box_iou_pairs(boxes_a - 0.25, boxes_b + 0.0),
+         sorted_pairs, True),
+        (["encode_runs_i32"], "256x384 label image",
+         lambda: ccl.image_to_runs(image), keep, False),
+        (["runs_ccl"], f"{len(image_runs[0])} runs, connectivity 8",
+         lambda: ccl.runs_connected_components(*image_runs, 384, 8), keep,
+         False),
+        (["runs_ccl"], f"{len(image_runs[0])} runs, connectivity 4",
+         lambda: ccl.runs_connected_components(*image_runs, 384, 4), keep,
+         False),
+        (["runs_ccl3d"], "(16, 64, 96) label volume, connectivity 26",
+         lambda: ccl3d.connected_components_3d(volume, 26), keep, False),
+        (["runs_ccl3d"], "(16, 64, 96) label volume, connectivity 6",
+         lambda: ccl3d.connected_components_3d(volume, 6), keep, False),
+        (["fill_runs_i32"], f"{len(instances)} instances into int32 {shape}",
+         lambda: fill.numpy_fill_instances(np.zeros(shape, np.int32),
+                                           instances), keep, False),
+        (["fill_runs_i64"], f"{len(instances)} instances into int64 {shape}",
+         lambda: fill.numpy_fill_instances(np.zeros(shape, np.int64),
+                                           instances), keep, False),
+        (["fill_runs_i32"], "chunked, uint32 chunks through an int32 view",
+         lambda: fill.chunked_fill_instances(
+             np.zeros(shape, np.uint32), instances, chunks=(32, 64, 64)),
+         keep, False),
+        (["fill_runs_i64"], "chunked, uint64 chunks through an int64 view",
+         lambda: fill.chunked_fill_instances(
+             np.zeros(shape, np.uint64), instances, chunks=(32, 64, 64)),
+         keep, False),
+        (["fill_runs_i32", "fill_runs_i64"], "declines: uint16 chunks",
+         lambda: fill.chunked_fill_instances(
+             np.zeros(shape, np.uint16), instances, chunks=(32, 64, 64)),
+         keep, True),
+    ]
+    held = set()
+    for entry_points, what, fn, canon, declines in cases:
+        native.reset_calls()
+        got, ms = best_ms(fn, 3)
+        calls = dict(native.CALLS)
+        for name in entry_points:
+            if (calls[name] == 0) != declines:
+                fail(f"host core {name} ({what}): {calls[name]} native "
+                     f"calls, expected {'none' if declines else 'some'}")
+        native.reset_calls()
+        with native.numpy_host_half():
+            want, plain_ms = best_ms(fn, 1)
+        if any(native.CALLS.values()):
+            fail(f"host core {entry_points[0]} ({what}): the numpy path "
+                 f"called the library: {native.CALLS}")
+        if not same_nested(canon(got), canon(want)):
+            fail(f"host core {entry_points[0]} ({what}): native != numpy")
+        if not declines:
+            held.update(entry_points)
+        print(f"host core {' / '.join(entry_points)} ({what}): native "
+              f"{ms:.3f} ms, numpy {plain_ms:.3f} ms; equal")
+    missing = set(native.ENTRY_POINTS) - held
+    if missing:
+        fail(f"host core: no case held {sorted(missing)} against numpy")
+    print(f"host core: {len(held)} entry points == numpy exactly over "
+          f"{len(cases)} cases")
+
+
+def _wide_boxes(rng, n):
+    """n 2D boxes that all overlap one another: n^2 pairs, more than the
+    first output buffer of box_overlap_pairs holds."""
+    lo = rng.integers(0, 100, (n, 2))
+    return np.concatenate([lo, lo + 10 ** 6], axis=1).astype(np.int64)
+
+
 def phase_group_kernel():
     """group_pixels kernel vs its plain version, exact, at the main,
     fine, dense and the orthoplane path's xy / xz / yz shapes over
@@ -403,6 +624,29 @@ def inference_kwargs(mode):
                 min_size=500, min_span=4)
 
 
+def host_path_ran(path, required):
+    """Print which host half a main path ran with and the host core's
+    call counts by entry point (set to 0 just before that run); fail if
+    it ran with the numpy host half, or without calling one of the
+    ``required`` entry points."""
+    from empanada_torch.core import native
+
+    calls = {k: v for k, v in native.CALLS.items() if v}
+    if native.get_lib() is None or not calls:
+        fail(f"the {path} main path ran with the numpy host half")
+    print(f"{path} host half: native (C++ host core), calls by entry "
+          f"point {calls}")
+    for name in required:
+        if name not in calls:
+            fail(f"the {path} main path never called the host core's "
+                 f"{name}")
+
+
+# entry points that the host half of every inference run must reach:
+# run labeling, the matcher's batched intersections
+HOST_REQUIRED = ("runs_ccl", "pair_intersections")
+
+
 def phase_main_path():
     """Full-width MitoNet through run_inference3d(stack) on the card;
     returns the kernel launch counts of that run, the model and the
@@ -410,6 +654,7 @@ def phase_main_path():
     import torch
 
     from empanada_torch.cli.infer3d import run_inference3d
+    from empanada_torch.core import native
     from empanada_torch.models import create_model
     from empanada_torch.ops import group
 
@@ -452,12 +697,14 @@ def phase_main_path():
 
     torch.cuda.synchronize()
     group.reset_launches()
+    native.reset_calls()
     stats = {}
     t0 = time.time()
     result = run_inference3d(model, vol, stats=stats, **kwargs)
     torch.cuda.synchronize()
     seconds = time.time() - t0
     launches = dict(group.LAUNCHES)
+    host_path_ran("stack", HOST_REQUIRED)
 
     if sorted(result) != [1] or result[1].shape3d != vol.shape:
         fail(f"main path returned {sorted(result)}")
@@ -507,6 +754,7 @@ def phase_orthoplane(model):
     import torch
 
     from empanada_torch.cli.infer3d import run_inference3d
+    from empanada_torch.core import native
     from empanada_torch.ops import group
 
     d, h, w = ORTHO_SHAPE
@@ -526,6 +774,7 @@ def phase_orthoplane(model):
           f"three slice shapes, stack mode): {time.time() - t0:.3f} s")
 
     group.reset_launches()
+    native.reset_calls()
     probe = AxisProbe(vol, group.LAUNCHES)
     stats = {}
     t0 = time.time()
@@ -534,6 +783,7 @@ def phase_orthoplane(model):
     torch.cuda.synchronize()
     seconds = time.time() - t0
     launches = dict(group.LAUNCHES)
+    host_path_ran("orthoplane", HOST_REQUIRED + ("kway_vote",))
 
     if sorted(result) != [1] or tuple(result[1].shape3d) != vol.shape:
         fail(f"orthoplane path returned {sorted(result)} with shape3d "
@@ -564,6 +814,37 @@ def phase_orthoplane(model):
     print(f"orthoplane consensus: {stats['consensus_seconds']:.3f} s, "
           f"{len(result[1].instances)} 3D instances; kernel launches "
           f"{launches}")
+
+    # the same run with the numpy host half (after the counts were read:
+    # its launches and calls belong to no main path)
+    plain_stats = {}
+    native.reset_calls()
+    t0 = time.time()
+    with native.numpy_host_half():
+        plain = run_inference3d(model, vol, stats=plain_stats,
+                                progress=False, **kwargs)
+    torch.cuda.synchronize()
+    plain_seconds = time.time() - t0
+    if any(native.CALLS.values()):
+        fail(f"the numpy host half called the host core: {native.CALLS}")
+    tails = " / ".join(
+        f"{plain_stats['axes'][name]['forward_seconds']:.3f} "
+        f"{plain_stats['axes'][name]['seconds']:.3f}" for name in AXES)
+    print(f"orthoplane with the numpy host half: {plain_seconds:.3f} s = "
+          f"{n_slices / plain_seconds:.2f} slices/s (native: "
+          f"{seconds:.3f} s); forward and tail seconds xy / xz / yz "
+          f"{tails}; consensus {plain_stats['consensus_seconds']:.3f} s")
+    counts = [(stats["axes"][name]["instances_matched"],
+               plain_stats["axes"][name]["instances_matched"])
+              for name in AXES]
+    if any(n != m for n, m in counts) or not same_instances(
+            result[1].instances, plain[1].instances):
+        fail(f"orthoplane: the consensus with the native host half "
+             f"differs from the one with the numpy host half (matched 2D "
+             f"instances per axis {counts})")
+    print(f"orthoplane: consensus with the native host half == with the "
+          f"numpy host half, RLE for RLE ({len(plain[1].instances)} "
+          f"instances; matched 2D instances per axis {counts})")
     return {"total": launches["group_pixels"], "per_axis": per_axis}, \
         result, vol
 
@@ -595,18 +876,14 @@ def label_volume_instances(vol):
     return instances
 
 
-def phase_consensus_at_density(n_objects=1500):
-    """The host's consensus and fill on their own at a product-like
-    instance count (``--profile``): three views of ``n_objects`` seeded
-    ellipsoids in a volume of ORTHO_SHAPE, each view with its own jitter,
-    a tenth of the objects dropped and its own numbering, as three axis
-    passes of a trained model give. A seeded init's own consensus is one
-    instance, so the main path's consensus time says nothing of this."""
-    from empanada_torch.inference import patterns
+def density_trackers(n_objects=1500, shape=ORTHO_SHAPE):
+    """Three finished trackers at a product-like instance count: three
+    views of ``n_objects`` seeded ellipsoids in a volume of ``shape``,
+    each view with its own jitter, a tenth of the objects dropped and its
+    own numbering, as three axis passes of a trained model give."""
     from empanada_torch.inference.tracker import InstanceTracker
 
     rng = np.random.default_rng(6)
-    shape = ORTHO_SHAPE
     centers = rng.uniform(0, shape, (n_objects, 3))
     radii = rng.uniform(3.0, 8.0, (n_objects, 3))
     trackers = []
@@ -627,23 +904,49 @@ def phase_consensus_at_density(n_objects=1500):
         tracker.instances = label_volume_instances(vol)
         tracker.finished = True
         trackers.append(tracker)
+    return trackers
 
-    t0 = time.time()
-    consensus = patterns.create_instance_consensus(trackers, 2, 0.75)
-    cons_s = time.time() - t0
-    dense = np.zeros(shape, np.uint32)
-    t0 = time.time()
-    patterns.fill_volume(dense, consensus.instances)
-    fill_s = time.time() - t0
+
+def phase_consensus_at_density(trackers, n_objects=1500):
+    """The host's consensus and fill on their own at a product-like
+    instance count (``--profile``), with the C++ host core and then with
+    the numpy host half: the two must agree RLE for RLE. A seeded init's
+    own consensus is one instance, so the main path's consensus time
+    says nothing of this."""
+    from empanada_torch.core import native
+    from empanada_torch.inference import patterns
+
+    shape = tuple(trackers[0].shape3d)
+
+    def run():
+        t0 = time.time()
+        consensus = patterns.create_instance_consensus(trackers, 2, 0.75)
+        cons_s = time.time() - t0
+        dense = np.zeros(shape, np.uint32)
+        t0 = time.time()
+        patterns.fill_volume(dense, consensus.instances)
+        return consensus, cons_s, time.time() - t0, dense
+
+    native.reset_calls()
+    consensus, cons_s, fill_s, dense = run()
+    calls = {k: v for k, v in native.CALLS.items() if v}
+    with native.numpy_host_half():
+        plain, plain_cons_s, plain_fill_s, plain_dense = run()
     print(f"breakdown consensus at density: three views of "
           f"{' / '.join(str(len(t.instances)) for t in trackers)} "
-          f"instances in {shape}: consensus {cons_s:.3f} s (host, one "
-          f"thread) -> {len(consensus.instances)} instances, "
-          f"{int((dense > 0).sum())} voxels; dense numpy fill "
-          f"{fill_s:.3f} s")
+          f"instances in {shape}: consensus native {cons_s:.3f} s, numpy "
+          f"{plain_cons_s:.3f} s (host, one thread) -> "
+          f"{len(consensus.instances)} instances, "
+          f"{int((dense > 0).sum())} voxels; dense uint32 fill native "
+          f"{fill_s:.3f} s, numpy {plain_fill_s:.3f} s; native calls "
+          f"{calls}")
     if not n_objects // 2 < len(consensus.instances) <= n_objects:
         fail(f"consensus at density: {len(consensus.instances)} instances "
              f"from {n_objects} objects")
+    if not same_instances(consensus.instances, plain.instances) \
+            or not np.array_equal(dense, plain_dense):
+        fail("consensus at density: the native host half's consensus "
+             "differs from the numpy host half's")
 
 
 def dense_fill(shape, instances):
@@ -689,6 +992,7 @@ def phase_command_line(model, vol, tmp):
               "machine, and the descriptor is a yaml file")
         return None
     from empanada_torch.cli import infer3d
+    from empanada_torch.core import native
     from empanada_torch.data.zarr_store import create_zarr, open_zarr
     from empanada_torch.export import export_model
     from empanada_torch.inference.tracker import InstanceTracker
@@ -702,6 +1006,7 @@ def phase_command_line(model, vol, tmp):
     store[:, :, :] = crop
 
     group.reset_launches()
+    native.reset_calls()
     t0 = time.time()
     infer3d.main([str(tmp / "mitonet.yaml"), str(tmp / "crop.zarr"),
                   "-mode", "orthoplane", "-qlen", "3"])
@@ -709,6 +1014,7 @@ def phase_command_line(model, vol, tmp):
     launches = group.LAUNCHES["group_pixels"]
     if launches <= 0:
         fail("the command line never launched the group_pixels kernel")
+    host_path_ran("command line", HOST_REQUIRED + ("fill_runs_i32",))
 
     seg_path = tmp / "crop_orthoplane_seg_class1.zarr"
     json_path = tmp / "crop_orthoplane_class1.json"
@@ -763,12 +1069,44 @@ def host_half(blocks, shape3d, axis_name="xy"):
                          500, 4)
 
 
+def host_half_breakdown(label, blocks, shape3d, axis_name, n_slices):
+    """One axis's host half alone (serial, one thread) with the C++ host
+    core and with the numpy host half, then the native one under
+    cProfile: what is left in python."""
+    import cProfile
+    import pstats
+
+    from empanada_torch.core import native
+
+    native.reset_calls()
+    t0 = time.time()
+    host_half(blocks, shape3d, axis_name)
+    host_s = time.time() - t0
+    calls = {k: v for k, v in native.CALLS.items() if v}
+    t0 = time.time()
+    with native.numpy_host_half():
+        host_half(blocks, shape3d, axis_name)
+    plain_s = time.time() - t0
+    n_runs = sum(int(arr[j, 0, 0]) for z, _, arr in blocks
+                 for j, zz in enumerate(z) if zz is not None)
+    print(f"{label}: host half alone native {host_s:.3f} s, numpy "
+          f"{plain_s:.3f} s for {n_slices} slices ({n_runs} foreground "
+          f"runs); native calls {calls}")
+    prof = cProfile.Profile()
+    prof.runcall(host_half, blocks, shape3d, axis_name)
+    stats = pstats.Stats(prof)
+    for (fname, line, func), (_, ncalls, tottime, cumtime, _) in sorted(
+            stats.stats.items(), key=lambda kv: -kv[1][2])[:8]:
+        print(f"  {tottime:8.3f} s self {cumtime:8.3f} s cum x{ncalls:<7d} "
+              f"{Path(fname).name}:{line} {func}")
+
+
 def phase_breakdown(model, vol):
     """Where the stack main path's time goes (``--profile``): the engine
     alone (device pipeline + one packed copy per block, no host
     matching), the model forward and the postprocess of one block, and a
     torch.profiler trace of the engine pass (device busy time by
-    kernel)."""
+    kernel), and the host half alone, native beside numpy."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -825,34 +1163,18 @@ def phase_breakdown(model, vol):
     for e in events[:12]:
         print(f"  {device_us(e) / 1e3:9.3f} ms  x{e.count:<5d} {e.key[:90]}")
 
-    # the host half on its own, timed and then under cProfile
-    import cProfile
-    import pstats
-
     blocks = [(z, pan.shape[-2:], np.asarray(packed))
               for z, pan, packed in engine.infer_blocks(dataset)]
-    t0 = time.time()
-    host_half(blocks, vol.shape)
-    host_s = time.time() - t0
-    n_runs = sum(int(arr[j, 0, 0]) for z, _, arr in blocks
-                 for j, zz in enumerate(z) if zz is not None)
-    print(f"breakdown: host half alone {host_s:.3f} s for "
-          f"{vol.shape[0]} slices ({n_runs} foreground runs)")
-    prof = cProfile.Profile()
-    prof.runcall(host_half, blocks, vol.shape)
-    stats = pstats.Stats(prof).sort_stats("tottime")
-    for (fname, line, func), (_, ncalls, tottime, cumtime, _) in sorted(
-            stats.stats.items(), key=lambda kv: -kv[1][2])[:8]:
-        print(f"  {tottime:8.3f} s self {cumtime:8.3f} s cum x{ncalls:<7d} "
-              f"{Path(fname).name}:{line} {func}")
+    host_half_breakdown("breakdown", blocks, vol.shape, "xy", vol.shape[0])
 
 
 def phase_breakdown_orthoplane(model, vol):
     """Each axis of the orthoplane path on its own (``--profile``): the
     engine alone over the axis's slices (no host matching), the model
     forward of one block of that shape, and the axis's host half alone
-    (serial). Held beside the overlapped run's per-axis times, these
-    show how far the host threads slow the next axis's device stream."""
+    (serial; native beside numpy, then the native one under cProfile).
+    Held beside the overlapped run's per-axis times, these show how far
+    the host threads slow the next axis's device stream."""
     import torch
 
     from empanada_torch.data import VolumeDataset
@@ -879,16 +1201,12 @@ def phase_breakdown_orthoplane(model, vol):
         with torch.inference_mode():
             fwd_ms = cuda_ms(lambda: model(x, interpolate_ins=False), reps=5,
                              warmup=2)
-        t0 = time.time()
-        host_half(blocks, vol.shape, name)
-        host_s = time.time() - t0
-        n_runs = sum(int(arr[j, 0, 0]) for z, _, arr in blocks
-                     for j, zz in enumerate(z) if zz is not None)
         print(f"breakdown orthoplane {name}: {n} slices padded to {ph}x{pw} "
               f"in {len(blocks)} blocks of {bsz}: engine alone "
               f"{engine_s:.3f} s = {n / engine_s:.2f} slices/s; "
-              f"model forward {fwd_ms:.3f} ms per block; host half alone "
-              f"{host_s:.3f} s ({n_runs} foreground runs)")
+              f"model forward {fwd_ms:.3f} ms per block")
+        host_half_breakdown(f"breakdown orthoplane {name}", blocks,
+                            vol.shape, name, n)
 
 
 def same_instances(a, b):
@@ -941,9 +1259,10 @@ def main():
     parser.add_argument("--profile", action="store_true",
                         help="also break the main paths' time down "
                              "(stack: engine alone, forward, postprocess, "
-                             "profiler trace, host half; orthoplane: "
-                             "engine, forward and host half alone per "
-                             "axis; consensus at a product-like count)")
+                             "profiler trace, host half native and numpy; "
+                             "orthoplane: engine, forward and host half "
+                             "alone per axis, native and numpy; consensus "
+                             "at a product-like count, native and numpy)")
     args = parser.parse_args()
 
     root = Path(__file__).resolve().parent
@@ -960,6 +1279,8 @@ def main():
 
     set_parity_numerics()
     phase_build()
+    trackers = density_trackers()
+    phase_host_core(trackers)
     row = phase_group_kernel()
     launches, model, vol = phase_main_path()
     if args.profile:
@@ -967,7 +1288,8 @@ def main():
     ortho_launches, consensus, ortho_vol = phase_orthoplane(model)
     if args.profile:
         phase_breakdown_orthoplane(model, ortho_vol)
-        phase_consensus_at_density()
+        phase_consensus_at_density(trackers)
+    del trackers
     with tempfile.TemporaryDirectory() as tmp:
         phase_fill_store(consensus, ortho_vol.shape, tmp)
         cli_launches = phase_command_line(model, ortho_vol, tmp)

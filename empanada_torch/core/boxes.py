@@ -97,6 +97,20 @@ def box_iou_pairs(boxes1: np.ndarray, boxes2: np.ndarray | None = None,
     a1 = box_area(boxes1)
     a2 = box_area(boxes2)
 
+    if n * m > (1 << 16):
+        # native bucketed sweep (core/_native): near-linear in true-pair
+        # count; the numpy block path below is O(n*m) elementwise work,
+        # which dominates consensus at thousands of 3D instances
+        from empanada_torch.core import native
+
+        hit = native.box_overlap_pairs(boxes1, None if self_pairs
+                                       else boxes2)
+        if hit is not None:
+            pairs, inter = hit
+            rows, cols = pairs[:, 0], pairs[:, 1]
+            union = a1[rows] + a2[cols] - inter
+            return rows, cols, inter / union, inter
+
     # sort-sweep prune on dim 0: with boxes2 sorted by lo0, a boxes1
     # block only intersects the boxes2 prefix whose lo0 < its max hi0
     # (everything after starts past the block's furthest end). Exact —

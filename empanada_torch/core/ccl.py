@@ -3,8 +3,9 @@
 Replaces the reference's external cc3d / skimage.measure dependencies
 (reference empanada/inference/rle.py:18-24, matcher.py:72-78) with a
 union-find over row-split runs: O(#runs * alpha) instead of per-pixel work.
-numpy/python only; the JAX package's C++ fast path is a later slice
-of the port.
+C++ fast path in core/_native/core.cpp (etpu_encode_runs_i32,
+etpu_runs_ccl) through core/native.py; the numpy/python code below is
+its plain version.
 
 Connectivity semantics match cc3d: 8-connectivity in 2D, and components
 are computed *within* each distinct non-zero value (multi-label CCL).
@@ -14,6 +15,7 @@ from __future__ import annotations
 
 import numpy as np
 
+from empanada_torch.core import native
 from empanada_torch.core.rle import rle_encode
 
 __all__ = [
@@ -33,6 +35,10 @@ def image_to_runs(img: np.ndarray):
     """
     img = np.ascontiguousarray(img)
     h, w = img.shape
+    out = native.encode_runs(img.astype(np.int32, copy=False), w)
+    if out is not None:
+        return out
+
     flat = img.ravel()
     n = flat.size
     # boundary where value changes or at row starts
@@ -47,7 +53,8 @@ def image_to_runs(img: np.ndarray):
 
 
 def _runs_ccl_python(starts, ends, values, width, connectivity=8):
-    """Pure-python union-find CCL over row-split runs (fallback path)."""
+    """Pure-python union-find CCL over row-split runs (the plain
+    version of etpu_runs_ccl)."""
     n = len(starts)
     parent = np.arange(n)
 
@@ -114,6 +121,9 @@ def runs_connected_components(starts, ends, values, width,
     values = np.asarray(values, dtype=np.int64)
     if len(starts) == 0:
         return np.zeros(0, dtype=np.int32), 0
+    out = native.runs_ccl(starts, ends, values, width, connectivity)
+    if out is not None:
+        return out
     return _runs_ccl_python(starts, ends, values, width, connectivity)
 
 

@@ -12,6 +12,7 @@ import os
 
 import numpy as np
 
+from empanada_torch.core import native
 from empanada_torch.core.ccl import _within_run_offsets
 
 __all__ = ["numpy_fill_instances", "split_ranges_on_chunks",
@@ -33,6 +34,9 @@ def numpy_fill_instances(volume: np.ndarray, instances: dict) -> np.ndarray:
         runs = np.asarray(attrs["runs"], dtype=np.int64)
         if len(starts) == 0:
             continue
+        if flat.dtype in (np.int32, np.int64) and flat.flags.c_contiguous:
+            if native.fill_runs(flat, starts, runs, int(instance_id)) is not None:
+                continue
         idx = np.repeat(starts, runs) + _within_run_offsets(runs)
         flat[idx] = instance_id
 
@@ -107,7 +111,6 @@ def split_ranges_on_chunks(starts, runs, shape, chunks):
     return out
 
 
-
 def chunked_fill_instances(store, instances: dict, chunks=None, processes=1):
     """Fill a chunked 3D store with RLE instances, one chunk at a time.
 
@@ -116,9 +119,9 @@ def chunked_fill_instances(store, instances: dict, chunks=None, processes=1):
     Ranges are partitioned per chunk first so each chunk is read/written
     exactly once (the write-race-free design of the reference's
     zarr_fill_instances, zarr_utils.py:88-175); with ``processes > 1``
-    disjoint chunks are filled by a thread pool (numpy's indexing and
-    the store's compressor release the GIL; threads avoid the reference
-    mp.Pool's pickling overhead).
+    disjoint chunks are filled by a thread pool (the C++ fill, numpy's
+    indexing and the store's compressor release the GIL; threads avoid
+    the reference mp.Pool's pickling overhead).
     """
     shape = store.shape
     if chunks is None:
@@ -142,12 +145,27 @@ def chunked_fill_instances(store, instances: dict, chunks=None, processes=1):
 
         bh, bw = y1 - y0, x1 - x0
         flat = np.ascontiguousarray(block).reshape(-1)
+        # the native run fill writes 4/8-byte lanes; an unsigned view of
+        # the same width is bit-identical for non-negative ids (stores
+        # default to uint32, which would otherwise take the numpy repeat
+        # path and its per-run index allocations)
+        if flat.dtype == np.uint32:
+            fill_view = flat.view(np.int32)
+        elif flat.dtype == np.uint64:
+            fill_view = flat.view(np.int64)
+        else:
+            fill_view = flat
         for instance_id, s, r in fills:
             # convert global raveled coords to block-local raveled coords
             z = s // (h * w) - z0
             y = (s // w) % h - y0
             x = s % w - x0
             local = (z * bh + y) * bw + x
+            if fill_view.dtype in (np.int32, np.int64) \
+                    and 0 <= instance_id < 2 ** 31:
+                if native.fill_runs(fill_view, local, r,
+                                    instance_id) is not None:
+                    continue
             idx = np.repeat(local, r) + _within_run_offsets(r)
             flat[idx] = instance_id
 

@@ -5,7 +5,9 @@ complements and intersections. The reference implements these as numba
 per-pixel loops (array_utils.py:340-688); here every operation is an
 *event sweep*: convert ranges to (+1 at start, -1 at end) boundary events,
 sort, and read coverage depth off a cumulative sum. This is O(E log E)
-in the number of range endpoints and fully vectorized.
+in the number of range endpoints, fully vectorized, and maps directly to
+a single linear pass in the C++ fast path (``core/native.py``); the numpy
+code below is the plain version of those entry points.
 
 Coverage-depth semantics are identical to the reference's vote counting:
 each source RLE contributes disjoint ranges, so the number of votes at an
@@ -16,6 +18,7 @@ from __future__ import annotations
 
 import numpy as np
 
+from empanada_torch.core import native
 
 __all__ = [
     "rle_to_ranges",
@@ -52,6 +55,18 @@ def concat_sort_ranges(list_of_ranges) -> np.ndarray:
     if not list_of_ranges:
         return _EMPTY.copy()
     ranges = np.concatenate(list_of_ranges, axis=0)
+    if len(list_of_ranges) > 1 and all(
+            len(r) < 2 or bool(np.all(r[1:, 0] >= r[:-1, 0]))
+            for r in list_of_ranges):
+        # every input is already start-sorted (canonical RLEs — the
+        # consensus vote path): a native k-way merge replaces the
+        # argsort of the concatenation, bit-identical output (ties keep
+        # concatenation order, like the stable argsort)
+        offs = np.zeros(len(list_of_ranges) + 1, dtype=np.int64)
+        offs[1:] = np.cumsum([len(r) for r in list_of_ranges])
+        merged = native.kway_merge_ranges(ranges, offs)
+        if merged is not None:
+            return merged
     order = np.argsort(ranges[:, 0], kind="stable")
     return ranges[order]
 
@@ -62,7 +77,11 @@ def _coverage_ranges(ranges: np.ndarray, thr: int) -> np.ndarray:
         return _EMPTY.copy()
     ranges = np.asarray(ranges, dtype=np.int64).reshape(-1, 2)
 
-    # event sweep
+    out = native.coverage_ranges(ranges, thr)
+    if out is not None:
+        return out
+
+    # numpy path: event sweep
     starts = ranges[:, 0]
     ends = ranges[:, 1]
     points = np.concatenate([starts, ends])
@@ -90,11 +109,35 @@ def _coverage_ranges(ranges: np.ndarray, thr: int) -> np.ndarray:
     return np.stack([out_starts, out_ends], axis=1)
 
 
+def _kway_vote_fast(list_of_ranges, thr):
+    """Native one-pass k-way coverage vote when every input is canonical
+    (start-sorted AND disjoint — instance RLEs by construction); None
+    when an input fails the check or the numpy host half is asked for."""
+    if native.get_lib() is None:
+        # bail before the canonicality scans + concatenate: the caller
+        # repeats that packing work in its own concat-sort path
+        return None
+    cleaned = []
+    for r in list_of_ranges:
+        r = np.asarray(r, dtype=np.int64).reshape(-1, 2)
+        if len(r) > 1 and not bool(np.all(r[1:, 0] >= r[:-1, 1])):
+            return None
+        cleaned.append(r)
+    offs = np.zeros(len(cleaned) + 1, dtype=np.int64)
+    offs[1:] = np.cumsum([len(r) for r in cleaned])
+    cat = (np.concatenate(cleaned, axis=0) if len(cleaned) > 1
+           else cleaned[0])
+    return native.kway_vote(cat, offs, thr)
+
+
 def join_ranges(list_of_ranges) -> np.ndarray:
     """Union of possibly-overlapping ranges -> disjoint sorted ranges."""
     list_of_ranges = [r for r in list_of_ranges if len(r) > 0]
     if not list_of_ranges:
         return _EMPTY.copy()
+    out = _kway_vote_fast(list_of_ranges, 1)
+    if out is not None:
+        return out
     ranges = concat_sort_ranges(list_of_ranges)
     return _coverage_ranges(ranges, 1)
 
@@ -110,6 +153,9 @@ def vote_by_ranges(list_of_ranges, vote_thr: int = 2) -> np.ndarray:
         return join_ranges(list_of_ranges)
     if len(list_of_ranges) < vote_thr:
         return _EMPTY.copy()
+    out = _kway_vote_fast(list_of_ranges, vote_thr)
+    if out is not None:
+        return out
     ranges = concat_sort_ranges(list_of_ranges)
     return _coverage_ranges(ranges, vote_thr)
 
@@ -133,7 +179,11 @@ def ranges_intersection(ranges_a: np.ndarray, ranges_b: np.ndarray) -> int:
     if len(ranges_a) == 0 or len(ranges_b) == 0:
         return 0
 
-    # vectorized: for each a-range, clip against candidate b-ranges
+    out = native.ranges_intersection(ranges_a, ranges_b)
+    if out is not None:
+        return out
+
+    # numpy path, vectorized: for each a-range, clip against candidate b-ranges
     # via searchsorted on b starts/ends.
     bs, be = ranges_b[:, 0], ranges_b[:, 1]
     # index of first b-range whose end is > a.start

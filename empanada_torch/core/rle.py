@@ -124,7 +124,7 @@ def rle_intersection(starts_a, runs_a, starts_b, runs_b) -> int:
 
 def rle_pairwise_intersections(starts_a, runs_a, starts_b, runs_b,
                                rows, cols):
-    """Intersection sizes for many instance pairs.
+    """Intersection sizes for many instance pairs in ONE native call.
 
     ``starts_x``/``runs_x`` are lists of per-instance canonical RLE
     arrays; ``rows``/``cols`` index pairs (a_i, b_j). The slice matcher
@@ -135,6 +135,8 @@ def rle_pairwise_intersections(starts_a, runs_a, starts_b, runs_b,
     cols = np.asarray(cols, dtype=np.int64)
     if len(rows) == 0:
         return np.zeros(0, dtype=np.int64)
+
+    from empanada_torch.core import native
 
     def _pack(starts, runs):
         # one C-level concatenate per column — the per-instance python
@@ -157,6 +159,10 @@ def rle_pairwise_intersections(starts_a, runs_a, starts_b, runs_b,
     else:
         cat_b, offs_b = _pack(starts_b, runs_b)
 
+    pairs = np.stack([rows, cols], axis=1)
+    out = native.pair_intersections(cat_a, offs_a, cat_b, offs_b, pairs)
+    if out is not None:
+        return out
     return np.array([
         ranges_intersection(cat_a[offs_a[i]:offs_a[i + 1]],
                             cat_b[offs_b[j]:offs_b[j + 1]])
@@ -193,6 +199,15 @@ def merge_rles(starts_a, runs_a, starts_b=None, runs_b=None):
     ra = _as_ranges(starts_a, runs_a)
     if starts_b is not None and runs_b is not None:
         rb = _as_ranges(starts_b, runs_b)
+        if _is_sorted_disjoint(ra) and _is_sorted_disjoint(rb):
+            # hot path (matcher false-split healing): both inputs are
+            # already canonical — one native two-pointer merge instead
+            # of the generic concat+sort+coverage-sweep chain
+            from empanada_torch.core import native
+
+            out = native.rle_union(ra, rb)
+            if out is not None:
+                return out[:, 0], out[:, 1] - out[:, 0]
         ranges = [ra, rb]
     else:
         ranges = [ra]

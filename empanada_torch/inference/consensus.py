@@ -148,11 +148,11 @@ def _object_iou_graph(source_indices, object_boxes, object_starts,
                       object_runs):
     """Nodes = instances, edges = non-zero RLE overlap across sources.
 
-    All box-screened pairs go through ONE batched intersection call
-    (core/rle.rle_pairwise_intersections, a python loop over the pairs
-    in this package): at the product's operating point (thousands of 3D
-    instances across 3 axis trackers, reference consensus.py:348-469)
-    this is the dominant consensus cost."""
+    All box-screened pairs go through ONE batched native intersection
+    call (core/rle.rle_pairwise_intersections): at the product's
+    operating point (thousands of 3D instances across 3 axis trackers,
+    reference consensus.py:348-469) per-pair Python/ctypes calls would
+    be the dominant consensus cost."""
     graph = _Graph()
     for node_id in range(len(object_boxes)):
         graph.add_node(node_id, box=object_boxes[node_id],
@@ -286,8 +286,8 @@ def _merge_overlapping(cluster_instances):
     (reference consensus.py:166-195).
 
     Pairs are box-screened, then all surviving pairs go through ONE
-    batched intersection call (box-disjoint pairs have zero voxel
-    overlap, so screening cannot change the result)."""
+    batched native intersection call (box-disjoint pairs have zero
+    voxel overlap, so screening cannot change the result)."""
     if len(cluster_instances) < 2:
         return list(cluster_instances.values())
 

@@ -16,7 +16,7 @@ from empanada_torch.core.rle import rle_pairwise_intersections
 from empanada_torch.inference.rle import get_canon, unpack_rle_attrs
 
 __all__ = ["rle_matcher", "RLEMatcher", "merge_attrs", "merge_attrs_many",
-           "fast_matcher"]
+           "merge_attrs_batch", "fast_matcher"]
 
 
 def merge_attrs(rle_attr1, rle_attr2):
@@ -30,11 +30,15 @@ def _canon_sr(attrs):
 
 
 def merge_attrs_many(attrs_list):
-    """Union of k instance attr dicts (enclosing box, canonical union
-    RLE)."""
+    """Union of k instance attr dicts in ONE native k-way merge (the
+    matcher's false-split healing can route several instances into the
+    same target; pairwise chained merges re-swept the accumulated RLE
+    each time and paid a native-call crossing per pair)."""
     if len(attrs_list) == 1:
         return attrs_list[0]
-    starts, runs = _union_sr_many([_canon_sr(a) for a in attrs_list])
+    pairs = [_canon_sr(a) for a in attrs_list]
+    starts, runs = _union_sr_many(pairs, [get_canon(a) is not None
+                                          for a in attrs_list])
     boxes = np.asarray([a["box"] for a in attrs_list], dtype=np.int64)
     nd = boxes.shape[1] // 2
     box = tuple(int(v) for v in boxes[:, :nd].min(axis=0)) + \
@@ -48,13 +52,95 @@ def merge_attrs_many(attrs_list):
     }
 
 
-def _union_sr_many(pairs):
-    """Union of k (starts, runs) RLEs -> canonical (starts, runs)."""
+def merge_attrs_batch(groups_lists):
+    """Union each group of instance attr dicts — all groups in ONE
+    native crossing (core/native.kway_union_batch). Same outputs as
+    [merge_attrs_many(g) for g in groups_lists]; falls back to exactly
+    that when an input is non-canonical or the numpy host half is asked
+    for."""
+    from empanada_torch.core import native
+
+    arrs, flags, group_sizes = [], [], []
+    for lst in groups_lists:
+        group_sizes.append(len(lst))
+        for a in lst:
+            s, r = _canon_sr(a)
+            arrs.append((np.asarray(s, np.int64), np.asarray(r, np.int64)))
+            flags.append(get_canon(a) is not None)
+    out = None
+    packed = (_pack_canonical(arrs, flags)
+              if len(arrs) > 1 and native.get_lib() is not None
+              else None)
+    if packed is not None:
+        group_offs = np.zeros(len(groups_lists) + 1, dtype=np.int64)
+        group_offs[1:] = np.cumsum(group_sizes)
+        out = native.kway_union_batch(*packed, group_offs)
+    if out is None:
+        return [merge_attrs_many(lst) for lst in groups_lists]
+    out_s, out_r, out_offs = out
+
+    # enclosing boxes: one reduceat pair over all groups
+    boxes = np.asarray([a["box"] for lst in groups_lists for a in lst],
+                       dtype=np.int64)
+    nd = boxes.shape[1] // 2
+    seg = np.zeros(len(groups_lists) + 1, dtype=np.int64)
+    seg[1:] = np.cumsum(group_sizes)
+    lo = np.minimum.reduceat(boxes[:, :nd], seg[:-1], axis=0)
+    hi = np.maximum.reduceat(boxes[:, nd:], seg[:-1], axis=0)
+
+    merged = []
+    for i in range(len(groups_lists)):
+        s = out_s[out_offs[i]:out_offs[i + 1]]
+        r = out_r[out_offs[i]:out_offs[i + 1]]
+        merged.append({
+            "box": tuple(int(v) for v in lo[i]) + tuple(int(v)
+                                                        for v in hi[i]),
+            "starts": s,
+            "runs": r,
+            "_canon": (s, r, int(np.sum(r)), s),
+        })
+    return merged
+
+
+def _pack_canonical(arrs, canon_flags):
+    """Flat-pack k (starts, runs) int64 pairs for the native k-way
+    union kernels: (s_cat, r_cat, offs), or None when any input fails
+    the canonicality check (start-sorted AND disjoint; skipped for
+    inputs pre-flagged canonical via ``_canon``). The single shared
+    definition of the canonical-RLE predicate for both union paths."""
+    ok = all(
+        flag or len(s) < 2 or bool(np.all(s[1:] >= s[:-1] + r[:-1]))
+        for (s, r), flag in zip(arrs, canon_flags))
+    if not ok:
+        return None
+    offs = np.zeros(len(arrs) + 1, dtype=np.int64)
+    offs[1:] = np.cumsum([len(s) for s, _ in arrs])
+    s_cat = (np.concatenate([s for s, _ in arrs])
+             if len(arrs) > 1 else arrs[0][0])
+    r_cat = (np.concatenate([r for _, r in arrs])
+             if len(arrs) > 1 else arrs[0][1])
+    return s_cat, r_cat, offs
+
+
+def _union_sr_many(pairs, canon_flags):
+    """Union of k (starts, runs) RLEs -> canonical (starts, runs).
+
+    Takes the native k-way starts/runs merge when every input is
+    canonical (guaranteed for attrs carrying ``_canon``; checked O(n)
+    otherwise); falls back to the generic sort+coverage join."""
+    from empanada_torch.core import native
+
+    arrs = [(np.asarray(s, np.int64), np.asarray(r, np.int64))
+            for s, r in pairs]
+    packed = (_pack_canonical(arrs, canon_flags)
+              if native.get_lib() is not None else None)
+    if packed is not None:
+        out = native.kway_union_sr(*packed)
+        if out is not None:
+            return out
     from empanada_torch.core.ranges import join_ranges, ranges_to_rle
 
-    ranges = [np.stack([np.asarray(s, np.int64),
-                        np.asarray(s, np.int64) + np.asarray(r, np.int64)],
-                       axis=1) for s, r in pairs]
+    ranges = [np.stack([s, s + r], axis=1) for s, r in arrs]
     joined = ranges_to_rle(join_ranges(ranges))
     return joined[:, 0], joined[:, 1]
 
@@ -85,6 +171,8 @@ def rle_matcher(target_instance_rles, match_instance_rles, iou_thr=0.5,
 
     rows, cols, _, _ = box_iou_pairs(target_boxes, match_boxes)
     if len(rows):
+        # all screened pairs in one native call (per-pair rle_iou calls
+        # are the dominant host cost at realistic instance density)
         inter = rle_pairwise_intersections(
             target_starts, target_runs, match_starts, match_runs,
             rows, cols).astype(np.float64)
@@ -216,11 +304,13 @@ class RLEMatcher:
                 new_label = ml
             groups.setdefault(new_label, []).append(mattrs)
 
-        # multi-instance labels union (associative: same result as the
-        # chained pairwise merges); singletons pass through untouched
+        # all multi-instance labels union in ONE batched native call
+        # (associative: same result as the chained pairwise merges);
+        # singletons pass through untouched
+        multi = [lst for lst in groups.values() if len(lst) > 1]
+        merged = iter(merge_attrs_batch(multi)) if multi else None
         matched_rles = {
-            label: attrs_list[0] if len(attrs_list) == 1
-            else merge_attrs_many(attrs_list)
+            label: attrs_list[0] if len(attrs_list) == 1 else next(merged)
             for label, attrs_list in groups.items()
         }
 

@@ -19,6 +19,7 @@ from empanada_torch.inference.rle import pan_seg_to_rle_seg
 from empanada_torch.inference.tracker import InstanceTracker
 from tests.test_consensus_spheres import SHAPE as SPHERE_SHAPE
 from tests.test_consensus_spheres import make_spheres
+from tests.test_torch_native import with_host_half
 
 
 def assert_instances_equal(got, want):
@@ -120,6 +121,24 @@ def test_merge_objects_from_trackers(tracker_sets, case, pixel_vote_thr,
         assert len(got) > 50
 
 
+@pytest.mark.parametrize("host_half", ["native", "numpy"])
+@pytest.mark.parametrize("cluster_iou_thr", [0, 0.75])
+def test_merge_objects_host_halves(tracker_sets, cluster_iou_thr, host_half):
+    """The ~330-instance consensus with the host half named: the C++
+    core (the default; the graph's batched intersections and the pixel
+    vote must have called it) and the numpy paths (asked for; no native
+    call). Both equal the JAX package's, RLE for RLE."""
+    want_trackers, got_trackers = tracker_sets["many"]
+    want = jax_consensus.merge_objects_from_trackers(
+        want_trackers, 2, cluster_iou_thr, False)
+    got = with_host_half(
+        host_half, lambda: consensus.merge_objects_from_trackers(
+            got_trackers, 2, cluster_iou_thr, False),
+        required=("pair_intersections", "kway_vote"))
+    assert_instances_equal(got, want)
+    assert len(got) > 50
+
+
 @pytest.mark.parametrize("pixel_vote_thr", [1, 2, 3])
 @pytest.mark.parametrize("case", ["spheres", "many"])
 def test_merge_semantic_from_trackers(tracker_sets, case, pixel_vote_thr):
@@ -171,6 +190,17 @@ def test_merge_objects_from_tiles(seed, with_overlap):
     got = consensus.merge_objects_from_tiles(tiles, overlap)
     assert_instances_equal(got, want)
     assert len(got) > 20
+
+
+@pytest.mark.parametrize("host_half", ["native", "numpy"])
+def test_merge_objects_from_tiles_host_halves(host_half):
+    tiles, overlap_rle = _tiles(0)
+    want = jax_consensus.merge_objects_from_tiles(tiles, overlap_rle)
+    got = with_host_half(
+        host_half,
+        lambda: consensus.merge_objects_from_tiles(tiles, overlap_rle),
+        required=("pair_intersections",))
+    assert_instances_equal(got, want)
 
 
 @pytest.mark.parametrize("seed", [0, 1])

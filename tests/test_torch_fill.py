@@ -18,6 +18,7 @@ from empanada_tpu.inference import patterns as jax_patterns
 from empanada_torch.core import fill
 from empanada_torch.data import zarr_store
 from empanada_torch.inference import patterns
+from tests.test_torch_native import with_host_half
 
 SHAPE = (20, 70, 90)
 CHUNKS = (8, 32, 64)
@@ -116,6 +117,32 @@ def test_chunked_fill_into_both_stores(tmp_path, processes, compressor):
         back = reader.open_zarr(path)
         assert back.shape == SHAPE and back.chunks == CHUNKS
         np.testing.assert_array_equal(np.asarray(back), dense)
+
+
+@pytest.mark.parametrize("host_half", ["native", "numpy"])
+@pytest.mark.parametrize("dtype", [np.uint32, np.int64])
+def test_chunked_fill_host_halves(tmp_path, dtype, host_half):
+    """The fill into a zarr store with the host half named: the C++ run
+    fill (the default; uint32 chunks through their int32 view) and
+    numpy's repeat path (asked for). Stores are byte-identical to the
+    JAX package's."""
+    instances = _instances(6)
+    paths = {name: str(tmp_path / f"{name}.zarr") for name in ("jax",
+                                                                "torch")}
+    store = jax_zarr.create_zarr(paths["jax"], SHAPE, chunks=CHUNKS,
+                                 dtype=dtype)
+    jax_fill.chunked_fill_instances(store, instances, processes=2)
+    store = zarr_store.create_zarr(paths["torch"], SHAPE, chunks=CHUNKS,
+                                   dtype=dtype)
+    with_host_half(
+        host_half,
+        lambda: fill.chunked_fill_instances(store, instances, processes=2),
+        required=("fill_runs_i32" if dtype == np.uint32
+                  else "fill_runs_i64",))
+    assert _dir_bytes(paths["torch"]) == _dir_bytes(paths["jax"])
+    dense = fill.numpy_fill_instances(np.zeros(SHAPE, dtype), instances)
+    np.testing.assert_array_equal(
+        np.asarray(zarr_store.open_zarr(paths["torch"])), dense)
 
 
 def test_fill_volume_dispatch(tmp_path):

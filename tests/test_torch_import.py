@@ -1,7 +1,9 @@
 """The port stands alone: empanada_torch and chip_smoke.py import nothing
 of JAX or the JAX package (and PyYAML only inside the functions that
-read or write a descriptor), entry points never fall back to the CPU on
-their own, and the CUDA kernel path is taken only for CUDA tensors."""
+read or write a descriptor), importing them neither compiles nor loads
+the C++ host core (that happens at first use), entry points never fall
+back to the CPU on their own, and the CUDA kernel path is taken only for
+CUDA tensors."""
 
 import pkgutil
 import re
@@ -24,6 +26,10 @@ NEW_MODULES = ("empanada_torch.__main__", "empanada_torch.config",
                "empanada_torch.data.zarr_store",
                "empanada_torch.inference.consensus",
                "empanada_torch.cli.infer3d")
+# modules of the C++ host core slice
+HOST_CORE_MODULES = ("empanada_torch.native_build",
+                     "empanada_torch.core.native",
+                     "empanada_torch.core.ccl3d")
 
 
 def _port_sources():
@@ -35,7 +41,7 @@ def test_every_module_imports_with_jax_blocked():
     names = [m.name for m in pkgutil.walk_packages(
         empanada_torch.__path__, "empanada_torch.")]
     assert "empanada_torch.inference.fused" in names
-    assert set(NEW_MODULES) <= set(names)
+    assert set(NEW_MODULES + HOST_CORE_MODULES) <= set(names)
     blocked = BLOCKED + ("yaml",)
     code = (
         "import sys\n"
@@ -51,6 +57,42 @@ def test_every_module_imports_with_jax_blocked():
         # named
         "from empanada_torch.cli.infer3d import parse_args\n"
         "assert parse_args(['m.yaml', 'v.zarr']).mode == 'orthoplane'\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_import_neither_builds_nor_loads_the_host_core():
+    """Importing the package, its core and chip_smoke.py starts no
+    build and loads no library; the first call of a host-core function
+    does both."""
+    names = [m.name for m in pkgutil.walk_packages(
+        empanada_torch.__path__, "empanada_torch.")]
+    code = (
+        "import sys\n"
+        "from empanada_torch import cuda_build, native_build\n"
+        "def refuse(*a, **k):\n"
+        "    raise AssertionError('a build was started at import')\n"
+        "real = native_build.build, cuda_build.build_all\n"
+        "native_build.build = cuda_build.build_all = refuse\n"
+        "import importlib\n"
+        "import empanada_torch\n"
+        "import empanada_torch.core\n"
+        f"for name in {names!r}:\n"
+        "    importlib.import_module(name)\n"
+        "import chip_smoke\n"
+        "from empanada_torch.core import native\n"
+        "maps = open('/proc/self/maps').read()\n"
+        "assert native._lib is None and 'libetpu_core' not in maps\n"
+        "assert not any(m.split('.')[0] in ('jax', 'empanada_tpu', 'yaml')\n"
+        "               for m in sys.modules)\n"
+        "native_build.build, cuda_build.build_all = real\n"
+        "import numpy as np\n"
+        "from empanada_torch.core import ranges_intersection\n"
+        "assert ranges_intersection(np.array([[0, 5]]),\n"
+        "                           np.array([[3, 9]])) == 2\n"
+        "assert native._lib is not None\n"
+        "assert 'libetpu_core' in open('/proc/self/maps').read()\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr

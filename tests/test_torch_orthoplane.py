@@ -31,6 +31,7 @@ from empanada_torch.weights import flax_to_torch
 from tests.synthetic import SyntheticModule as JaxSyntheticModule
 from tests.test_torch_consensus import assert_instances_equal
 from tests.test_torch_models import TINY, _randomize
+from tests.test_torch_native import with_host_half
 from tests.test_torch_stack import _blob_volume, _collect, _ellipsoid
 
 COUNTS = ("slices", "overflow_slices", "instances_matched")
@@ -93,6 +94,24 @@ def test_orthoplane_matches_jax(volume, pixel_vote_thr, one_view, qlen,
         assert got_stats["axes"][axis]["slices"] == n
         assert got_stats["axes"][axis]["instances_matched"] > 0
     assert got_stats["instances_3d"] == want_stats["instances_3d"]
+
+
+@pytest.mark.parametrize("host_half", ["native", "numpy"])
+def test_orthoplane_host_halves_match_jax(host_half):
+    """The orthoplane comparison with the host half named: the C++ core
+    (the default; the three axes' host threads and the consensus must
+    have called it) and the numpy paths (asked for; no native call).
+    Both give the JAX package's consensus exactly."""
+    vol, want, got, want_stats, got_stats = with_host_half(
+        host_half, lambda: _both("blobs", pixel_vote_thr=2, qlen=3),
+        required=("runs_ccl", "pair_intersections", "kway_vote"))
+    assert got[1].shape3d == want[1].shape3d == vol.shape
+    assert len(got[1].instances) >= 1
+    assert_instances_equal(got[1].instances, want[1].instances)
+    for axis in ("xy", "xz", "yz"):
+        for key in COUNTS:
+            assert got_stats["axes"][axis][key] == \
+                want_stats["axes"][axis][key], (axis, key)
 
 
 def test_save_panoptic_crops_each_axis(tmp_path):

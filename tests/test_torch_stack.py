@@ -22,6 +22,7 @@ from empanada_torch.models import create_model
 from empanada_torch.ops.group import LAUNCHES
 from empanada_torch.synthetic import SyntheticModule
 from tests.synthetic import SyntheticModule as JaxSyntheticModule
+from tests.test_torch_native import with_host_half
 
 
 class _DS:
@@ -144,6 +145,35 @@ def test_run_inference3d_stack_matches_jax(volume):
         np.testing.assert_array_equal(ins_g[label]["starts"], attrs["starts"])
         np.testing.assert_array_equal(ins_g[label]["runs"], attrs["runs"])
     assert stats["axes"]["xy"]["slices"] == len(vol)
+
+
+# entry points of the C++ host core that the stack path's host half calls
+# on a volume with several instances a slice
+STACK_ENTRY_POINTS = ("runs_ccl", "pair_intersections")
+
+
+@pytest.mark.parametrize("host_half", ["native", "numpy"])
+def test_run_inference3d_stack_host_halves_match_jax(host_half):
+    """The same comparison with the host half named: the C++ core (the
+    default; its entry points must have been called) and the numpy
+    paths (asked for; the library must not have been called). Both give
+    the JAX package's instances exactly."""
+    vol = _blob_volume(seed=3, d=9)
+    kwargs = dict(labels=[1], thing_list=[1], mode="stack", qlen=3,
+                  label_divisor=100, block_size=4, padding_factor=16,
+                  max_centers=64, min_size=10, min_span=1, progress=False,
+                  norms={"mean": 0.5, "std": 0.2})
+    want = jax_run_inference3d((JaxSyntheticModule(), {}), vol, **kwargs)
+    got = with_host_half(
+        host_half, lambda: run_inference3d(SyntheticModule(), vol,
+                                           device="cpu", **kwargs),
+        required=STACK_ENTRY_POINTS)
+    ins_w, ins_g = want[1].instances, got[1].instances
+    assert len(ins_w) >= 1 and list(ins_g) == list(ins_w)
+    for label, attrs in ins_w.items():
+        assert tuple(ins_g[label]["box"]) == tuple(attrs["box"]), label
+        np.testing.assert_array_equal(ins_g[label]["starts"], attrs["starts"])
+        np.testing.assert_array_equal(ins_g[label]["runs"], attrs["runs"])
 
 
 def test_tiny_mitonet_stack_end_to_end_on_cpu():
