@@ -42,7 +42,21 @@ failure exits non-zero before the final line):
    (needs PyYAML; says so and does not run where that is missing);
 8. content: a parameter-free synthetic model on an ellipsoid volume in
    stack and in orthoplane mode, CUDA vs CPU instance RLEs exactly
-   equal and matching the ellipsoid.
+   equal and matching the ellipsoid;
+9. training: a synthetic EM-like training set written as PNG files
+   (two subdirectories of 200 and 120 images of 384², an eval set of 8,
+   a finetune set of 48); MitoNet's recipe
+   (``configs/mitonet_panoptic_bifpn_pointrend.yaml``: batch 64 of 256²
+   crops, bf16 autocast, AdamW + OneCycle, PointRend 1024 points) at
+   full width for 2 epochs (10 steps) through ``Trainer.fit``, with
+   validation through the 2D engine (K1) and a checkpoint after each
+   epoch: steps/s, images/s, data-wait share, peak memory, the loss per
+   step; a validation alone; a resume for a third epoch; ``python -m
+   empanada_torch export``; one f32 train step on the card against the
+   CPU, and in bf16; ``python -m empanada_torch finetune`` with
+   ``configs/finetune.yaml``'s TRAIN (stage4 frozen below, batch 16),
+   the frozen stages bit-identical and their BN statistics moved; the
+   finetuned descriptor's stack inference on the card.
 
 The line before the last is the kernel table (JSON); the last line is
 ``{"ok": true, "device": {...}}``.
@@ -79,6 +93,9 @@ GROUP_SHAPES = {
              [136, 120, 150, 136, 128, 144, 136, 140]),
     "dense": (8, 128, 128, 512, 4.0,
               [400, 380, 420, 400, 512, 390, 410, 388]),
+    # the training path's validation: one 384^2 eval image (a multiple
+    # of the padding factor 128) grouped at full resolution
+    "val": (1, 384, 384, 256, 1.0, [120]),
 }
 AXES = ("xy", "xz", "yz")
 
@@ -550,7 +567,7 @@ def phase_group_kernel():
               for n_valid in ([256] * b, [40] * b, [0] * b)
               for step in (1.0, 4.0)]
     cases += [(shape, kind, None, GROUP_SHAPES[shape][4])
-              for shape in ("fine", "dense") + AXES
+              for shape in ("fine", "dense", "val") + AXES
               for kind in ("random", "em", "special")]
     worst = 0
     for shape, kind, n_valid, step in cases:
@@ -565,7 +582,8 @@ def phase_group_kernel():
     blocks = ", ".join("{} {}x{}x{}".format(a, *GROUP_SHAPES[a][:3])
                        for a in AXES)
     print(f"group_pixels: kernel == plain exactly over {len(cases)} cases "
-          f"(shapes main, fine, dense and the orthoplane blocks {blocks}; "
+          f"(shapes main, fine, dense, val and the orthoplane blocks "
+          f"{blocks}; "
           f"offsets "
           f"random, EM-like, special; random and prefix masks; steps 1, 4 "
           f"at main)")
@@ -1253,6 +1271,406 @@ def phase_content(mode):
         fail(f"content ({mode}): best IoU with the ellipsoid {best:.4f} "
              f"< 0.9")
 
+# ---------------------------------------------------------------------------
+# the training path: MitoNet's recipe at full width
+# ---------------------------------------------------------------------------
+
+RECIPE = "configs/mitonet_panoptic_bifpn_pointrend.yaml"
+FINETUNE_RECIPE = "configs/finetune.yaml"
+TRAIN_SET = {"train": (200, 120), "eval": (8,), "finetune": (48,)}
+TRAIN_SIDE = 384
+TRAIN_DEVICE = "cuda"
+
+
+def em_like_image(rng, side=TRAIN_SIDE):
+    """A seeded uint8 EM-like image (noisy background, bright rotated
+    ellipses with dark membranes) and its uint16 instance mask."""
+    image = rng.normal(110, 18, (side, side)).astype(np.float32)
+    mask = np.zeros((side, side), np.uint16)
+    for k in range(1, int(rng.integers(6, 16)) + 1):
+        cy, cx = rng.uniform(0, side, 2)
+        a, b = rng.uniform(10, 40), rng.uniform(6, 18)
+        t = rng.uniform(0, np.pi)
+        # the ellipse's bounding box only
+        y0, y1 = int(max(cy - a, 0)), int(min(cy + a + 1, side))
+        x0, x1 = int(max(cx - a, 0)), int(min(cx + a + 1, side))
+        yy, xx = np.ogrid[y0:y1, x0:x1]
+        u = ((yy - cy) * np.cos(t) + (xx - cx) * np.sin(t)) / a
+        v = (-(yy - cy) * np.sin(t) + (xx - cx) * np.cos(t)) / b
+        r = u * u + v * v
+        inside = r <= 1
+        mask[y0:y1, x0:x1][inside] = k
+        patch = image[y0:y1, x0:x1]
+        patch[inside] = 185 + rng.normal(0, 12, int(inside.sum()))
+        patch[inside & (r > 0.8)] = 70
+    return np.clip(image, 0, 255).astype(np.uint8), mask
+
+
+def write_training_set(root):
+    """The on-disk layout <dir>/<subdir>/{images,masks}/*.png of a train
+    set (two subdirectories of unequal size), an eval set and a finetune
+    set; returns their directories."""
+    from empanada_torch.data.image_files import write_png
+
+    rng = np.random.default_rng(5)
+    dirs = {}
+    for name, counts in TRAIN_SET.items():
+        dirs[name] = root / name
+        for si, n in enumerate(counts):
+            for sub in ("images", "masks"):
+                (dirs[name] / f"source{si}" / sub).mkdir(parents=True)
+            for i in range(n):
+                image, mask = em_like_image(rng)
+                write_png(str(dirs[name] / f"source{si}" / "images"
+                              / f"{i:04d}.png"), image)
+                write_png(str(dirs[name] / f"source{si}" / "masks"
+                              / f"{i:04d}.png"), mask)
+    return dirs
+
+
+def recipe_config(dirs, tmp, epochs):
+    """The MitoNet recipe with only the data dirs, the epochs and the
+    workers changed."""
+    from empanada_torch.config import load_config
+
+    cfg = load_config(RECIPE)
+    cfg["TRAIN"].update(train_dir=str(dirs["train"]),
+                        model_dir=str(tmp / "models"), workers=7)
+    cfg["TRAIN"]["schedule_params"]["epochs"] = epochs
+    cfg["EVAL"]["eval_dir"] = str(dirs["eval"])
+    return cfg
+
+
+def steady_rates(timeline, batch):
+    """(steps/s, images/s, data-wait share, steps counted) over the
+    steps after the first two, leaving out the first step of each later
+    epoch (it holds the validation, the checkpoint and the new workers'
+    start)."""
+    rows = [(t["end"] - timeline[i - 1]["end"], t["data_wait"])
+            for i, t in enumerate(timeline)
+            if i >= 2 and t["epoch"] == timeline[i - 1]["epoch"]]
+    seconds = sum(r[0] for r in rows)
+    return (len(rows) / seconds, len(rows) * batch / seconds,
+            sum(r[1] for r in rows) / seconds, len(rows))
+
+
+def phase_train(dirs, tmp):
+    """The recipe at full width on the card: 2 epochs with validation
+    after each and a checkpoint, a validation of its own, then a resume
+    for a third epoch. Returns (K1 launches of the fit, of the
+    validation, the checkpoint, the config)."""
+    import torch
+
+    from empanada_torch.data.image_files import reader
+    from empanada_torch.ops import group
+    from empanada_torch.train import Trainer
+
+    cfg = recipe_config(dirs, tmp, epochs=2)
+    trainer = Trainer(cfg, device=TRAIN_DEVICE, seed=0)
+    loader = trainer.build_loader()
+    losses = []
+
+    def on_step(trainer, aux):
+        torch.cuda.synchronize()
+        losses.append(float(aux["total_loss"]))
+
+    print(f"training set: {len(loader.dataset)} images of {TRAIN_SIDE}² in "
+          f"{len(TRAIN_SET['train'])} subdirectories "
+          f"{TRAIN_SET['train']}, read with {reader()}; batch "
+          f"{trainer.batch_size}, {len(loader)} steps an epoch, "
+          f"{loader.num_workers} workers, amp {trainer.amp_dtype}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    group.reset_launches()
+    t0 = time.time()
+    trainer.fit(loader=loader, on_step=on_step)
+    torch.cuda.synchronize()
+    fit_seconds = time.time() - t0
+    fit_launches = group.LAUNCHES["group_pixels"]
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    steps_s, images_s, wait, counted = steady_rates(trainer.timeline,
+                                                    trainer.batch_size)
+    print(f"train: {len(losses)} steps in {fit_seconds:.3f} s (2 epochs, "
+          f"validation and checkpoint after each); steady {steps_s:.4f} "
+          f"steps/s = {images_s:.2f} images/s over {counted} steps; "
+          f"data-wait share {wait:.4f}; peak device memory {peak:.3f} GiB; "
+          f"K1 launches {fit_launches}")
+    print("train losses per step: " + " ".join(f"{v:.5f}" for v in losses))
+    print("train step seconds: " + " ".join(
+        f"{t['end'] - (trainer.timeline[i - 1]['end'] if i else t0):.4f}"
+        for i, t in enumerate(trainer.timeline)))
+    if len(losses) < 10 or not np.isfinite(losses).all():
+        fail(f"training: {len(losses)} steps, losses {losses}")
+    if fit_launches <= 0:
+        fail("the training path never launched the group_pixels kernel")
+
+    group.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    metrics = trainer.validate()
+    torch.cuda.synchronize()
+    val_seconds = time.time() - t0
+    val_launches = group.LAUNCHES["group_pixels"]
+    print(f"validation: {TRAIN_SET['eval'][0]} images of {TRAIN_SIDE}² in "
+          f"{val_seconds:.3f} s; metrics {metrics}; K1 launches "
+          f"{val_launches}")
+    if set(metrics) != {"mito_semantic_iou", "mito_pq", "mito_f1_50"} \
+            or val_launches != 2 * TRAIN_SET["eval"][0]:
+        fail(f"validation: metrics {sorted(metrics)}, K1 launches "
+             f"{val_launches}")
+
+    ckpt = trainer.checkpoint_path()
+    if not (Path(ckpt).exists() and Path(ckpt + ".json").exists()):
+        fail(f"no checkpoint at {ckpt}")
+    del trainer, loader
+    torch.cuda.empty_cache()
+
+    resumed_cfg = recipe_config(dirs, tmp, epochs=3)
+    resumed_cfg["TRAIN"]["resume"] = ckpt
+    resumed = Trainer(resumed_cfg, device=TRAIN_DEVICE, seed=0)
+    history = resumed.fit(on_step=lambda *a: None)
+    print(f"resume: from epoch {resumed.start_epoch} to 3, "
+          f"{len(history)} epoch, step {resumed.step}; last losses "
+          f"{history[-1]}")
+    if resumed.start_epoch != 2 or len(history) != 1 \
+            or not np.isfinite(list(history[-1].values())).all():
+        fail("resume: the epoch did not advance from the checkpoint")
+    del resumed
+    torch.cuda.empty_cache()
+    return fit_launches, val_launches, ckpt, cfg
+
+
+def run_command(args, label):
+    """python -m empanada_torch <args> from the checkout; fails on a
+    non-zero exit. Returns its seconds."""
+    t0 = time.time()
+    proc = subprocess.run([sys.executable, "-m", "empanada_torch", *args],
+                          capture_output=True, text=True, timeout=600)
+    seconds = time.time() - t0
+    tail = "\n".join(proc.stdout.strip().splitlines()[-4:])
+    print(f"{label}: python -m empanada_torch {args[0]} in {seconds:.3f} s"
+          f"\n{tail}")
+    if proc.returncode != 0:
+        fail(f"{label}: exit {proc.returncode}\n{proc.stderr[-3000:]}")
+    return seconds
+
+
+def phase_export(cfg, ckpt, tmp):
+    """The checkpoint exported by the command line; the descriptor's
+    weights equal the checkpoint's."""
+    import torch
+    import yaml
+
+    cfg_path = tmp / "mitonet_recipe.yaml"
+    with open(cfg_path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    run_command(["export", str(cfg_path), ckpt, str(tmp / "export"),
+                 "-name", "mitonet_trained"], "export")
+    desc_path = tmp / "export" / "mitonet_trained.yaml"
+    state = torch.load(ckpt, map_location="cpu", weights_only=True)["model"]
+    exported = torch.load(tmp / "export" / "mitonet_trained.pth",
+                          map_location="cpu", weights_only=True)
+    if sorted(state) != sorted(exported) or not all(
+            torch.equal(state[k], exported[k]) for k in state):
+        fail("export: the descriptor's weights differ from the checkpoint")
+    return desc_path
+
+
+def _batch_for_step(seed, n=2, side=128):
+    from empanada_torch.data.utils.target_creation import heatmap_and_offsets
+
+    rng = np.random.default_rng(seed)
+    images, masks = zip(*(em_like_image(rng, side) for _ in range(n)))
+    masks = np.stack(masks).astype(np.int64)
+    hm, off = zip(*(heatmap_and_offsets(m) for m in masks))
+    image = (np.stack(images)[..., None] / 255.0 - 0.5) / 0.15
+    return {"image": image.astype(np.float32),
+            "sem": (masks > 0).astype(np.float32),
+            "ctr_hmp": np.stack(hm), "offsets": np.stack(off)}
+
+
+def phase_step_parity(cfg):
+    """One f32 train step of the recipe's model at full width (batch 2 x
+    128², TF32 off) on the card and on the CPU from the same init, batch
+    and PointRend points. Held: the loss within 1e-4 relative; the
+    gradient tree within 1e-3 relative in L2 norm; each updated
+    parameter within 1e-4 of max(its leaf's max |value|, 1) plus
+    lr * |s_card - s_cpu|, s = g / (|g| + eps) from each side's own
+    gradient: AdamW's first step moves an element by about lr * s, so
+    an element whose gradient is float noise (or changes sign between
+    the two devices) may move by up to 2 lr. Then the same step under
+    bf16 autocast, its loss printed beside the f32 loss."""
+    import copy
+
+    import torch
+
+    from empanada_torch.train import Trainer
+
+    cfg = copy.deepcopy(cfg)
+    cfg["TRAIN"]["batch_size"] = 2
+    batch = _batch_for_step(9)
+    coords = torch.from_numpy(np.random.default_rng(10).random(
+        (2, cfg["MODEL"]["train_num_points"], 2)).astype(np.float32))
+    results = {}
+    for label, device, amp in (("cuda f32", TRAIN_DEVICE, False),
+                               ("cpu f32", "cpu", False),
+                               ("cuda bf16", TRAIN_DEVICE, True)):
+        trainer = Trainer(cfg, device=device, seed=0)
+        if not amp:
+            trainer.amp_dtype = None
+        trainer.init_state(5)
+        t0 = time.time()
+        aux = trainer.train_step(batch, point_coords=coords.to(device))
+        loss = float(aux["total_loss"])
+        results[label] = (loss, time.time() - t0, {
+            n: (p.detach().cpu(), p.grad.detach().cpu())
+            for n, p in trainer.model.named_parameters()},
+            trainer.lr_schedule(0))
+        del trainer
+        torch.cuda.empty_cache()
+
+    (gpu_loss, gpu_s, gpu, lr), (cpu_loss, cpu_s, cpu, _) = \
+        results["cuda f32"], results["cpu f32"]
+    rel = abs(gpu_loss - cpu_loss) / abs(cpu_loss)
+    top = max(float(g.abs().max()) for _, g in cpu.values())
+    num = den = 0.0
+    worst_leaf = (0.0, "")
+    worst_param = 0.0
+    flipped = 0
+    bad = []
+    for name, (p_cpu, g_cpu) in cpu.items():
+        p_gpu, g_gpu = gpu[name]
+        num += float((g_gpu - g_cpu).square().sum())
+        den += float(g_cpu.square().sum())
+        err = float((g_gpu - g_cpu).abs().max()) \
+            / max(float(g_cpu.abs().max()), 0.05 * top)
+        worst_leaf = max(worst_leaf, (err, name))
+        s_gpu, s_cpu = (g / (g.abs() + 1e-8) for g in (g_gpu, g_cpu))
+        flipped += int((torch.sign(g_gpu) != torch.sign(g_cpu)).sum())
+        atol = 1e-4 * max(float(p_cpu.abs().max()), 1.0) \
+            + lr * (s_gpu - s_cpu).abs()
+        ratio = float(((p_gpu - p_cpu).abs() / atol).max())
+        worst_param = max(worst_param, ratio)
+        if ratio > 1:
+            bad.append(name)
+    grad_rel = (num / den) ** 0.5
+    n_elems = sum(p.numel() for p, _ in cpu.values())
+    print(f"f32 step at full width, batch 2 x 128², TF32 off: loss card "
+          f"{gpu_loss:.7f} / CPU {cpu_loss:.7f} (rel {rel:.2e}); gradient "
+          f"tree rel L2 {grad_rel:.2e}; worst leaf {worst_leaf[0]:.2e} of "
+          f"max(its max, 5% of the top leaf's) ({worst_leaf[1]}); "
+          f"{flipped} of {n_elems} gradient elements change sign; worst "
+          f"parameter {worst_param:.3f} of its tolerance; step seconds "
+          f"card {gpu_s:.3f} (first call) / CPU {cpu_s:.3f}")
+    bf16_loss = results["cuda bf16"][0]
+    print(f"bf16 step (autocast) loss {bf16_loss:.7f} beside f32 "
+          f"{gpu_loss:.7f}: rel {abs(bf16_loss - gpu_loss) / gpu_loss:.2e}")
+    if rel > 1e-4 or grad_rel > 1e-3 or bad or not np.isfinite(bf16_loss):
+        fail(f"f32 step: the card disagrees with the CPU (loss rel "
+             f"{rel:.2e}, gradient rel L2 {grad_rel:.2e}, parameters "
+             f"{bad[:5]}), or the bf16 loss is not finite")
+
+
+ENCODER_FROZEN = ("encoder_mod.stem.", "encoder_mod.stage1_",
+                  "encoder_mod.stage2_", "encoder_mod.stage3_")
+
+
+def phase_finetune(desc_path, dirs, tmp):
+    """``python -m empanada_torch finetune`` with the finetune recipe's
+    TRAIN (stage4, batch 16) on the exported descriptor; stem and stages
+    1-3 bit-identical, stage4, decoder and heads changed, the frozen BN
+    statistics moved; the re-exported descriptor runs stack inference
+    on the card. Returns the K1 launches of that inference."""
+    import torch
+    import yaml
+
+    from empanada_torch.cli.infer3d import run_inference3d
+    from empanada_torch.config import load_config
+    from empanada_torch.export import load_exported_model
+    from empanada_torch.ops import group
+
+    ft = load_config(FINETUNE_RECIPE)
+    ft["MODEL"]["config"] = str(desc_path)
+    ft["TRAIN"].update(train_dir=str(dirs["finetune"]),
+                       model_dir=str(tmp / "finetuned"), logging=False)
+    ft["TRAIN"]["schedule_params"]["epochs"] = 1
+    ft_path = tmp / "finetune.yaml"
+    with open(ft_path, "w") as f:
+        yaml.safe_dump(ft, f)
+    run_command(["finetune", str(ft_path)], "finetune")
+
+    before = torch.load(str(desc_path).replace(".yaml", ".pth"),
+                        weights_only=True)
+    out_desc = tmp / "finetuned" / "finetune_finetuned.yaml"
+    after = torch.load(str(out_desc).replace(".yaml", ".pth"),
+                       weights_only=True)
+    stats = ("running_mean", "running_var", "num_batches_tracked")
+    frozen = [k for k in before if k.startswith(ENCODER_FROZEN)
+              and not k.endswith(stats)]
+    moved = [k for k in before if not k.startswith(ENCODER_FROZEN)
+             and not k.endswith(stats)]
+    if not all(torch.equal(before[k], after[k]) for k in frozen):
+        fail("finetune: a frozen parameter (stem, stages 1-3) changed")
+    changed = [k for k in moved if not torch.equal(before[k], after[k])]
+    frozen_stats = [k for k in before if k.startswith(ENCODER_FROZEN)
+                    and k.endswith("running_var")]
+    stats_moved = sum(not torch.equal(before[k], after[k])
+                      for k in frozen_stats)
+    print(f"finetune: {len(frozen)} frozen parameters bit-identical; "
+          f"{len(changed)} of {len(moved)} others changed "
+          f"(stage4, decoder, heads); {stats_moved} of {len(frozen_stats)} "
+          f"frozen BN running variances moved")
+    for prefix in ("encoder_mod.stage4_", "semantic_decoder.",
+                   "semantic_head.", "ins_center.", "semantic_pr."):
+        if not any(k.startswith(prefix) for k in changed):
+            fail(f"finetune: nothing under {prefix} changed")
+    if stats_moved != len(frozen_stats):
+        fail("finetune: the frozen stages' BN statistics did not move")
+
+    model, desc = load_exported_model(str(out_desc), device=TRAIN_DEVICE)
+    vol = em_like_volume(np.random.default_rng(11), 8, 256, 256, 12)
+    group.reset_launches()
+    result = run_inference3d(model, vol, labels=desc["labels"],
+                             thing_list=desc["thing_list"], mode="stack",
+                             norms=desc["norms"], device=TRAIN_DEVICE,
+                             progress=False)
+    launches = group.LAUNCHES["group_pixels"]
+    if sorted(result) != [1] or result[1].shape3d != vol.shape \
+            or launches <= 0:
+        fail(f"finetuned descriptor: stack inference returned "
+             f"{sorted(result)}, K1 launches {launches}")
+    print(f"finetuned descriptor: stack inference on {vol.shape}, "
+          f"{len(result[1].instances)} 3D instances, K1 launches {launches}")
+    return launches
+
+
+def phase_training(root):
+    """The training path (see phase_train) and the commands around it.
+    Returns its K1 launch counts by part."""
+    import torch
+
+    import importlib
+
+    found = {}
+    for name in ("cv2", "imageio", "PIL"):
+        try:
+            found[name] = importlib.import_module(name).__version__
+        except ImportError:
+            found[name] = "not installed"
+    print(f"image libraries: {found}")
+    t0 = time.time()
+    dirs = write_training_set(root)
+    print(f"wrote the synthetic training, eval and finetune sets in "
+          f"{time.time() - t0:.2f} s")
+    fit_launches, val_launches, ckpt, cfg = phase_train(dirs, root)
+    desc_path = phase_export(cfg, ckpt, root)
+    stack_launches = phase_finetune(desc_path, dirs, root)
+    torch.cuda.empty_cache()
+    phase_step_parity(cfg)
+    return {"train_fit": fit_launches, "train_validation": val_launches,
+            "finetuned_stack": stack_launches}
+
+
 
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -1306,6 +1724,11 @@ def main():
         "command_line": cli_launches}
     for mode in ("stack", "orthoplane"):
         phase_content(mode)
+    # the training path: the fit (2 epochs, validation after each), a
+    # validation alone, and the finetuned descriptor's stack inference,
+    # each with the counts set to 0 just before it
+    with tempfile.TemporaryDirectory() as tmp:
+        row["launches_by_path"]["training"] = phase_training(Path(tmp))
 
     print("kernels: group_pixels")
     print(json.dumps({"kernels": [row]}))

@@ -4,6 +4,9 @@ import sys
 
 COMMANDS = {
     "infer3d": "empanada_torch.cli.infer3d",
+    "train": "empanada_torch.cli.train",
+    "finetune": "empanada_torch.cli.finetune",
+    "export": "empanada_torch.cli.export",
 }
 
 

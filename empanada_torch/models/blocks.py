@@ -4,7 +4,8 @@ Each block registers its children under the names the JAX package's
 flax tree uses (``Conv_0``, ``BatchNorm_0``, ...), so a flax variable
 path maps to a state_dict key by joining the names with dots
 (``empanada_torch.weights.flax_to_torch``). Batch norm runs with flax's
-epsilon (1e-5) from running statistics (inference only).
+epsilon (1e-5); in train mode it updates its running statistics as
+flax's ``nn.BatchNorm`` does (``FlaxBatchNorm2d``).
 """
 
 from __future__ import annotations
@@ -23,13 +24,41 @@ __all__ = [
     "Resample2d",
     "Interpolate2d",
     "Resize2d",
+    "FlaxBatchNorm2d",
 ]
 
 BN_EPS = 1e-5  # flax.linen.BatchNorm default
+BN_MOMENTUM = 0.1  # torch's convention for flax's momentum=0.9
+
+
+class FlaxBatchNorm2d(nn.BatchNorm2d):
+    """BatchNorm2d whose train-mode running variance moves by the BIASED
+    batch variance, as flax's ``nn.BatchNorm`` (momentum 0.9) updates
+    ``batch_stats.var``; torch's own update uses the unbiased variance.
+    Normalization (biased variance, eps 1e-5), the running mean, the
+    eval mode and the state-dict keys are torch's unchanged."""
+
+    def forward(self, x):
+        if not self.training:
+            return super().forward(x)
+        # torch moves a copy of the variance by 0.1 * var * n / (n - 1);
+        # the stored one takes that new term rescaled to the biased
+        # variance (autograd saves the copy, so this is no in-place
+        # change of a saved tensor)
+        var = self.running_var.clone()
+        out = F.batch_norm(x, self.running_mean, var, self.weight,
+                           self.bias, True, self.momentum, self.eps)
+        n = x.numel() // x.shape[1]
+        with torch.no_grad():
+            keep = 1.0 - self.momentum
+            new_term = var - keep * self.running_var
+            self.running_var.mul_(keep).add_(new_term, alpha=(n - 1) / n)
+            self.num_batches_tracked.add_(1)
+        return out
 
 
 def _bn(features):
-    return nn.BatchNorm2d(features, eps=BN_EPS)
+    return FlaxBatchNorm2d(features, eps=BN_EPS, momentum=BN_MOMENTUM)
 
 
 class ConvBNAct(nn.Module):

@@ -25,10 +25,12 @@ def _up(t):
 
 
 class PanopticBiFPN(nn.Module):
-    """Eval forward. Takes (N, 1, H, W) float32 images and returns a dict
-    of NCHW maps: ``sem_logits`` (N, C, H, W), ``ctr_hmp`` (N, 1, H, W)
-    and ``offsets`` (N, 2, H, W) with channels (dy, dx). The JAX package
-    returns the same maps NHWC."""
+    """Takes (N, 1, H, W) float32 images and returns a dict of NCHW maps:
+    ``sem_logits`` (N, C, H, W), ``ctr_hmp`` (N, 1, H, W) and
+    ``offsets`` (N, 2, H, W) with channels (dy, dx). The JAX package
+    returns the same maps NHWC. Train mode (``model.train()``) gives the
+    same keys at the same resolution; batch norm then uses and updates
+    batch statistics."""
 
     def __init__(self, encoder="regnety_6p4gf", num_classes=1, fpn_dim=160,
                  fpn_layers=3, ins_decoder=False, depthwise=True):
@@ -69,26 +71,54 @@ class PanopticBiFPN(nn.Module):
             "offsets": _up(self.ins_xy(instance_x)),
         }
 
-    def forward(self, x, render_steps: int = 2, interpolate_ins: bool = True):
+    def forward(self, x, render_steps: int = 2, interpolate_ins: bool = True,
+                point_coords=None, generator=None):
         semantic_x, instance_x = self._encode_decode(x)
+        if self.training:
+            return self._train_heads(semantic_x, instance_x, point_coords,
+                                     generator)
         return self._apply_heads(semantic_x, instance_x, render_steps,
                                  interpolate_ins)
+
+    def _train_heads(self, semantic_x, instance_x, point_coords, generator):
+        return self._apply_heads(semantic_x, instance_x, 2, True)
 
 
 class PanopticBiFPNPR(PanopticBiFPN):
     """PanopticBiFPN with PointRend rendering of the semantic logits:
     ``render_steps`` 2x steps from 1/4 resolution (2 = full resolution).
     With ``interpolate_ins=False`` the center heatmap and offsets stay at
-    1/4 resolution (the engine's coarse-boundaries contract)."""
+    1/4 resolution (the engine's coarse-boundaries contract).
+
+    Train mode adds ``sem_points`` (N, P, C) and ``point_coords``
+    (N, P, 2), the PointRend predictions at importance-sampled points
+    drawn from ``generator`` (or at the given ``point_coords``), and
+    returns ``sem_logits`` as the coarse logits upsampled 4x
+    (align_corners=True)."""
 
     def __init__(self, encoder="regnety_6p4gf", num_classes=1, fpn_dim=160,
                  fpn_layers=3, ins_decoder=False, depthwise=True, num_fc=3,
-                 subdivision_steps=2, subdivision_num_points=8192):
+                 subdivision_steps=2, subdivision_num_points=8192,
+                 train_num_points=1024, oversample_ratio=3,
+                 importance_sample_ratio=0.75):
         super().__init__(encoder, num_classes, fpn_dim, fpn_layers,
                          ins_decoder, depthwise)
         self.semantic_pr = PointRendSemSegHead(
             num_classes, fpn_dim, num_fc, subdivision_steps,
-            subdivision_num_points)
+            subdivision_num_points, train_num_points, oversample_ratio,
+            importance_sample_ratio)
+
+    def _train_heads(self, semantic_x, instance_x, point_coords, generator):
+        sem = self.semantic_head(semantic_x)
+        pr_out = self.semantic_pr.forward_train(sem, semantic_x,
+                                                point_coords, generator)
+        return {
+            "sem_logits": _up(pr_out["sem_seg_logits"]),
+            "sem_points": pr_out["point_logits"],
+            "point_coords": pr_out["point_coords"],
+            "ctr_hmp": _up(self.ins_center(instance_x)),
+            "offsets": _up(self.ins_xy(instance_x)),
+        }
 
     def _apply_heads(self, semantic_x, instance_x, render_steps,
                      interpolate_ins):

@@ -1,10 +1,16 @@
-"""PointRend semantic-segmentation refinement, eval render loop (NCHW).
+"""PointRend semantic-segmentation refinement (NCHW).
 
-``subdivision_steps`` rounds of: 2x upsample the logits, pick the K
-most uncertain grid points with an EXACT top-k whose ties go to the
+Eval: ``subdivision_steps`` rounds of: 2x upsample the logits, pick the
+K most uncertain grid points with an EXACT top-k whose ties go to the
 lower flat index (as ``lax.top_k``), re-predict them with a shared
 pointwise MLP over sampled decoder features + coarse logits, and write
-them back. The train-time point sampling belongs to a later slice.
+them back.
+
+Train: importance-sample ``train_num_points`` points per image (random
+points, the most uncertain of an oversampled set plus uniform ones),
+drawn from an explicit ``torch.Generator``, and predict them with the
+same MLP. The caller may pass the coordinates instead (the parity tests
+feed the JAX package's draw).
 """
 
 from __future__ import annotations
@@ -20,6 +26,7 @@ __all__ = [
     "calculate_uncertainty",
     "topk_lower_index",
     "get_uncertain_point_coords_on_grid",
+    "get_uncertain_point_coords_with_randomness",
     "StandardPointHead",
     "PointRendSemSegHead",
 ]
@@ -52,6 +59,33 @@ def get_uncertain_point_coords_on_grid(uncertainty_map, num_points: int):
     return point_indices, coords
 
 
+def get_uncertain_point_coords_with_randomness(
+        coarse_logits, num_points: int, oversample_ratio: int,
+        importance_sample_ratio: float, generator=None):
+    """Train-time point sampling from (N, C, H, W) logits. Returns
+    (N, num_points, 2) coords in [0, 1]^2 as (x, y); no gradient."""
+    n = coarse_logits.shape[0]
+    dev = coarse_logits.device
+    num_sampled = int(num_points * oversample_ratio)
+    with torch.no_grad():
+        coords = torch.rand((n, num_sampled, 2), generator=generator,
+                            device=dev)
+        point_logits = point_sample(coarse_logits.detach().float(), coords)
+        if point_logits.shape[-1] == 1:
+            uncertainty = -point_logits[..., 0].abs()
+        else:
+            top2 = torch.topk(point_logits, 2, dim=-1).values
+            uncertainty = top2[..., 1] - top2[..., 0]
+        num_uncertain = int(importance_sample_ratio * num_points)
+        idx = torch.topk(uncertainty, num_uncertain, dim=1).indices
+        picked = torch.gather(coords, 1, idx[..., None].expand(-1, -1, 2))
+        num_random = num_points - num_uncertain
+        if num_random > 0:
+            picked = torch.cat([picked, torch.rand(
+                (n, num_random, 2), generator=generator, device=dev)], 1)
+    return picked
+
+
 class StandardPointHead(nn.Module):
     """Shared pointwise MLP over sampled features + coarse logits.
     Inputs/outputs are (N, P, C); ``Dense_i`` are flax's Dense layers."""
@@ -78,12 +112,32 @@ class StandardPointHead(nn.Module):
 
 class PointRendSemSegHead(nn.Module):
     def __init__(self, num_classes, fc_dim, num_fc=3, subdivision_steps=2,
-                 subdivision_num_points=8192):
+                 subdivision_num_points=8192, train_num_points=1024,
+                 oversample_ratio=3, importance_sample_ratio=0.75):
         super().__init__()
+        self.train_num_points = train_num_points
+        self.oversample_ratio = oversample_ratio
+        self.importance_sample_ratio = importance_sample_ratio
         self.subdivision_steps = subdivision_steps
         self.subdivision_num_points = subdivision_num_points
         self.StandardPointHead_0 = StandardPointHead(num_classes, fc_dim,
                                                      num_fc)
+
+    def forward_train(self, coarse_logits, features, point_coords=None,
+                      generator=None):
+        """Train branch: {"sem_seg_logits": the coarse logits,
+        "point_logits": (N, P, C), "point_coords": (N, P, 2)}. Draws the
+        points from ``generator`` unless ``point_coords`` is given."""
+        if point_coords is None:
+            point_coords = get_uncertain_point_coords_with_randomness(
+                coarse_logits, self.train_num_points, self.oversample_ratio,
+                self.importance_sample_ratio, generator)
+        coarse_pts = point_sample(coarse_logits, point_coords)
+        fine_pts = point_sample(features, point_coords)
+        return {"sem_seg_logits": coarse_logits,
+                "point_logits": self.StandardPointHead_0(fine_pts,
+                                                         coarse_pts),
+                "point_coords": point_coords}
 
     def forward(self, coarse_logits, features, render_steps=None):
         """coarse_logits: (N, C, H/4, W/4); features: decoder features at

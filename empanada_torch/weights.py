@@ -14,6 +14,10 @@ maps to one state_dict key by its path. Layout changes:
 
 Any leaf that maps nowhere raises; given ``expect`` (a module or a
 state_dict), missing and extra keys and shape mismatches raise too.
+
+``params_to_torch`` maps a params-only tree the same way (gradients,
+optax's Adam ``mu`` / ``nu``), and ``flax_path`` names the flax leaf of
+a parameter of the port, so masks built on flax paths carry across.
 """
 
 from __future__ import annotations
@@ -21,7 +25,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["flax_to_torch"]
+__all__ = ["flax_to_torch", "params_to_torch", "flax_path"]
 
 _BN_LEAVES = {
     ("params", "scale"): "weight",
@@ -103,3 +107,25 @@ def flax_to_torch(variables_numpy, expect=None):
                 raise ValueError(f"{key}: shape {tuple(state[key].shape)} "
                                  f"!= expected {tuple(t.shape)}")
     return state
+
+
+def params_to_torch(params_numpy):
+    """A params-only flax tree (parameters, gradients, optimizer moments)
+    -> {parameter name of the port: tensor}, with the layout changes of
+    ``flax_to_torch``."""
+    out = {}
+    for path, value in _flatten(params_numpy):
+        key, arr = _convert_leaf("params", path, value)
+        out[key] = torch.from_numpy(np.array(arr, copy=True))
+    return out
+
+
+def flax_path(name: str) -> tuple:
+    """Parameter name of the port -> the path of its flax leaf in the
+    ``params`` collection (``a.BatchNorm_0.weight`` -> ``(a,
+    "BatchNorm_0", "scale")``, ``a.Conv_0.weight`` -> ``(a, "Conv_0",
+    "kernel")``)."""
+    *mods, leaf = name.split(".")
+    if leaf == "weight":
+        leaf = "scale" if mods[-1].startswith("BatchNorm_") else "kernel"
+    return tuple(mods) + (leaf,)

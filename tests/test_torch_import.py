@@ -30,6 +30,18 @@ NEW_MODULES = ("empanada_torch.__main__", "empanada_torch.config",
 HOST_CORE_MODULES = ("empanada_torch.native_build",
                      "empanada_torch.core.native",
                      "empanada_torch.core.ccl3d")
+# modules of the training slice
+TRAIN_MODULES = ("empanada_torch.train", "empanada_torch.train.trainer",
+                 "empanada_torch.train.optim",
+                 "empanada_torch.train.checkpoint",
+                 "empanada_torch.losses", "empanada_torch.metrics",
+                 "empanada_torch.data", "empanada_torch.data.loader",
+                 "empanada_torch.data.image_files",
+                 "empanada_torch.data.utils.transforms",
+                 "empanada_torch.inference.engines",
+                 "empanada_torch.utils.logging",
+                 "empanada_torch.cli.train", "empanada_torch.cli.finetune",
+                 "empanada_torch.cli.export")
 
 
 def _port_sources():
@@ -41,8 +53,8 @@ def test_every_module_imports_with_jax_blocked():
     names = [m.name for m in pkgutil.walk_packages(
         empanada_torch.__path__, "empanada_torch.")]
     assert "empanada_torch.inference.fused" in names
-    assert set(NEW_MODULES + HOST_CORE_MODULES) <= set(names)
-    blocked = BLOCKED + ("yaml",)
+    assert set(NEW_MODULES + HOST_CORE_MODULES + TRAIN_MODULES) <= set(names)
+    blocked = BLOCKED + ("yaml", "cv2", "mlflow")
     code = (
         "import sys\n"
         f"for name in {blocked!r}:\n"
@@ -129,6 +141,56 @@ def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
         load_exported_model(str(tmp_path / "model.yaml"))
     with pytest.raises(RuntimeError, match="CUDA"):
         main([str(tmp_path / "model.yaml"), str(tmp_path / "volume.npy")])
+
+
+def test_training_entry_points_raise_without_cuda(monkeypatch):
+    from empanada_torch.inference.engines import create_engine
+    from empanada_torch.train import Trainer
+
+    config = {"DATASET": {"labels": [1], "thing_list": [1]},
+              "MODEL": {"arch": "PanopticBiFPNPR",
+                        "encoder": "regnety_200mf", "fpn_layers": 1},
+              "TRAIN": {}}
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Trainer(config)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        create_engine("PanopticDeepLabEngine", None, thing_list=[1])
+    assert Trainer(config, device="cpu").device == torch.device("cpu")
+    engine = create_engine("PanopticDeepLabRenderEngine", None,
+                           thing_list=[1], device="cpu")
+    assert engine.device == torch.device("cpu")
+
+
+def test_dispatcher_lists_the_training_commands():
+    proc = subprocess.run([sys.executable, "-m", "empanada_torch", "--help"],
+                          cwd=ROOT, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0
+    for command in ("infer3d", "train", "finetune", "export"):
+        assert command in proc.stdout
+    from empanada_torch.__main__ import COMMANDS
+
+    assert set(COMMANDS) == {"infer3d", "train", "finetune", "export"}
+
+
+def test_png_codec_reads_where_no_image_library_imports(tmp_path):
+    """With cv2, imageio and PIL blocked the readers fall back to the
+    package's own PNG codec and read what it wrote."""
+    code = (
+        "import sys\n"
+        "for name in ('cv2', 'imageio', 'PIL'):\n"
+        "    sys.modules[name] = None\n"
+        "import numpy as np\n"
+        "from empanada_torch.data import image_files as f\n"
+        "a = np.arange(12 * 9, dtype=np.uint16).reshape(12, 9) * 300\n"
+        f"f.write_png({str(tmp_path / 'm.png')!r}, a)\n"
+        f"m = f.read_mask({str(tmp_path / 'm.png')!r})\n"
+        "assert f.reader() == 'png-codec'\n"
+        "assert m.dtype == np.int64 and (m == a).all()\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
 
 
 @pytest.mark.parametrize("kwargs", [{"mesh": object()}, {"resident": True}])
