@@ -56,7 +56,27 @@ failure exits non-zero before the final line):
    CPU, and in bf16; ``python -m empanada_torch finetune`` with
    ``configs/finetune.yaml``'s TRAIN (stage4 frozen below, batch 16),
    the frozen stages bit-identical and their BN statistics moved; the
-   finetuned descriptor's stack inference on the card.
+   finetuned descriptor's stack inference on the card;
+10. Panoptic-DeepLab: ``PanopticDeepLabPR`` from
+   ``configs/panoptic_deeplab_pointrend.yaml``'s MODEL block (resnet50,
+   stage 4 at stride 16, decoder 256, ASPP 2/4/6, an instance decoder at
+   0.5, PointRend) at full width from a seeded init: its parameter
+   count; PDL, PDL-PR and PDL-BC forwards on the card against the CPU;
+   the orthoplane path on ``synthetic_em_volume(ORTHO_SHAPE)`` (slices/s,
+   K1 launches per axis, host-core calls); ``evaluate3d`` on a crop
+   against its ground truth (every metric); the ground truth scored
+   against itself;
+11. boundary-contour: ``PanopticDeepLabBC`` from
+   ``configs/panoptic_deeplab_bc.yaml`` at full width through
+   ``run_bc_inference3d(mode="orthoplane")`` on the same volume
+   (per-axis and watershed seconds, 3D instances); the device watershed
+   against the numpy one on stacks made from synthetic ground truth
+   (labels equal; both times, levels, rounds); the parameter-free BC
+   twin on ellipsoids, CUDA labels == CPU labels, scored against the
+   ellipsoids; ``evaluate3d_bc`` on the crop (its ``_bc_seg.zarr`` ==
+   a fill of its ``pred_bc.json``); one epoch of the BC recipe through
+   ``Trainer.fit`` on phase 9's set, validation through ``BCEngine``
+   (steps/s, images/s, peak memory, the loss per step).
 
 The line before the last is the kernel table (JSON); the last line is
 ``{"ok": true, "device": {...}}``.
@@ -764,23 +784,13 @@ class AxisProbe:
         return out
 
 
-def phase_orthoplane(model):
-    """Full-width MitoNet through run_inference3d(orthoplane) on the
-    card, after a warm-up of each axis's slice shape; returns the kernel
-    launch counts of that run (total and per axis), the consensus and
-    the volume."""
+def warm_axes(model, vol, kwargs, label):
+    """A short stack of each axis's slices (same slice shape and block
+    size as the axis gives the engine) through run_inference3d."""
     import torch
 
     from empanada_torch.cli.infer3d import run_inference3d
-    from empanada_torch.core import native
-    from empanada_torch.ops import group
 
-    d, h, w = ORTHO_SHAPE
-    vol = em_like_volume(np.random.default_rng(4), d, h, w, n_blobs=30)
-    kwargs = inference_kwargs("orthoplane")
-
-    # warm-up: a short stack of each axis's slices (same slice shape and
-    # block size as the axis gives the engine) through the entry point
     t0 = time.time()
     warm = [GROUP_SHAPES[name][0] for name in AXES]
     for axis, n_warm in enumerate(warm):
@@ -788,8 +798,22 @@ def phase_orthoplane(model):
         run_inference3d(model, head, **dict(kwargs, mode="stack",
                                             progress=False))
     torch.cuda.synchronize()
-    print(f"orthoplane warm-up ({' / '.join(map(str, warm))} slices of the "
+    print(f"{label} warm-up ({' / '.join(map(str, warm))} slices of the "
           f"three slice shapes, stack mode): {time.time() - t0:.3f} s")
+
+
+def timed_orthoplane(model, vol, kwargs, label):
+    """run_inference3d(orthoplane) on the card with the kernel and
+    host-core counts set to 0 just before and read just after; prints
+    slices/s and per axis its start, forward seconds, host tail, matched
+    instances, kernel launches and slice reads; fails where an axis
+    launched no grouping kernel or the host half ran numpy. Returns
+    (result, stats, seconds, {"total", "per_axis"})."""
+    import torch
+
+    from empanada_torch.cli.infer3d import run_inference3d
+    from empanada_torch.core import native
+    from empanada_torch.ops import group
 
     group.reset_launches()
     native.reset_calls()
@@ -801,14 +825,14 @@ def phase_orthoplane(model):
     torch.cuda.synchronize()
     seconds = time.time() - t0
     launches = dict(group.LAUNCHES)
-    host_path_ran("orthoplane", HOST_REQUIRED + ("kway_vote",))
+    host_path_ran(label, HOST_REQUIRED + ("kway_vote",))
 
     if sorted(result) != [1] or tuple(result[1].shape3d) != vol.shape:
-        fail(f"orthoplane path returned {sorted(result)} with shape3d "
+        fail(f"{label} path returned {sorted(result)} with shape3d "
              f"{result[1].shape3d if 1 in result else None}, not "
              f"{vol.shape}")
     n_slices = sum(vol.shape)
-    print(f"orthoplane main path: volume {vol.shape} uint8, {n_slices} "
+    print(f"{label} main path: volume {vol.shape} uint8, {n_slices} "
           f"slices over three axes in {seconds:.3f} s = "
           f"{n_slices / seconds:.2f} slices/s "
           f"({vol.size / 512 ** 2 * 3 / seconds:.2f} 512^2-slice "
@@ -819,7 +843,7 @@ def phase_orthoplane(model):
     for a, name in enumerate(AXES):
         ax = stats["axes"][name]
         per_axis[name] = firsts[a + 1] - firsts[a]
-        print(f"orthoplane {name}: {ax['slices']} slices, started at "
+        print(f"{label} {name}: {ax['slices']} slices, started at "
               f"{probe.first[a][0] - t0:.3f} s, forward "
               f"{ax['forward_seconds']:.3f} s, with its host tail "
               f"{ax['seconds']:.3f} s; {ax['instances_matched']} matched 2D "
@@ -827,11 +851,32 @@ def phase_orthoplane(model):
               f"group_pixels launches {per_axis[name]}; slice reads "
               f"{probe.read_seconds[a]:.3f} s")
         if per_axis[name] <= 0:
-            fail(f"the orthoplane path launched no group_pixels kernel on "
+            fail(f"the {label} path launched no group_pixels kernel on "
                  f"axis {name}")
-    print(f"orthoplane consensus: {stats['consensus_seconds']:.3f} s, "
+    print(f"{label} consensus: {stats['consensus_seconds']:.3f} s, "
           f"{len(result[1].instances)} 3D instances; kernel launches "
           f"{launches}")
+    return result, stats, seconds, {"total": launches["group_pixels"],
+                                    "per_axis": per_axis}
+
+
+def phase_orthoplane(model):
+    """Full-width MitoNet through run_inference3d(orthoplane) on the
+    card, after a warm-up of each axis's slice shape; returns the kernel
+    launch counts of that run (total and per axis), the consensus and
+    the volume."""
+    import torch
+
+    from empanada_torch.cli.infer3d import run_inference3d
+    from empanada_torch.core import native
+
+    d, h, w = ORTHO_SHAPE
+    vol = em_like_volume(np.random.default_rng(4), d, h, w, n_blobs=30)
+    kwargs = inference_kwargs("orthoplane")
+    warm_axes(model, vol, kwargs, "orthoplane")
+    result, stats, seconds, ortho_launches = timed_orthoplane(
+        model, vol, kwargs, "orthoplane")
+    n_slices = sum(vol.shape)
 
     # the same run with the numpy host half (after the counts were read:
     # its launches and calls belong to no main path)
@@ -863,8 +908,7 @@ def phase_orthoplane(model):
     print(f"orthoplane: consensus with the native host half == with the "
           f"numpy host half, RLE for RLE ({len(plain[1].instances)} "
           f"instances; matched 2D instances per axis {counts})")
-    return {"total": launches["group_pixels"], "per_axis": per_axis}, \
-        result, vol
+    return ortho_launches, result, vol
 
 
 def label_volume_instances(vol):
@@ -1646,7 +1690,8 @@ def phase_finetune(desc_path, dirs, tmp):
 
 def phase_training(root):
     """The training path (see phase_train) and the commands around it.
-    Returns its K1 launch counts by part."""
+    Returns its K1 launch counts by part and the training set's
+    directories."""
     import torch
 
     import importlib
@@ -1668,8 +1713,353 @@ def phase_training(root):
     torch.cuda.empty_cache()
     phase_step_parity(cfg)
     return {"train_fit": fit_launches, "train_validation": val_launches,
-            "finetuned_stack": stack_launches}
+            "finetuned_stack": stack_launches}, dirs
 
+
+
+# ---------------------------------------------------------------------------
+# the Panoptic-DeepLab and boundary-contour families at full width
+# ---------------------------------------------------------------------------
+
+PDL_RECIPE = "configs/panoptic_deeplab_pointrend.yaml"
+BC_RECIPE = "configs/panoptic_deeplab_bc.yaml"
+# synthetic_em_volume's ground truth for both families' volume
+# (ORTHO_SHAPE): disjoint dark ellipsoids on noise
+SYNTH_GT = dict(n_instances=60, seed=12, radius=(6, 24), overlap=False)
+CROP = (slice(0, 40), slice(0, 100), slice(0, 150))
+# the watershed held against its numpy plain version: numpy takes
+# ~6 s for this size on a host CPU
+WATERSHED_SHAPE = (64, 128, 128)
+WATERSHED_KW = dict(thres1=0.7, thres2=0.4, thres3=0.3, seed_thres=8,
+                    min_size=32, label_divisor=1000)
+
+
+def recipe_model(path, arch=None):
+    """(arch, MODEL kwargs) of a recipe, its BASE chain resolved."""
+    from empanada_torch.config import load_config
+
+    cfg = dict(load_config(path)["MODEL"])
+    recipe_arch = cfg.pop("arch")
+    return arch or recipe_arch, cfg
+
+
+def forward_parity(label, model, arch, cfg, x):
+    """A full-width model's eval forward on the card against the CPU on
+    the same weights and input (TF32 off): worst max |diff| / max |ref|
+    over its outputs; fails above 1e-3 or on non-finite values."""
+    import torch
+
+    from empanada_torch.models import create_model
+
+    with torch.inference_mode():
+        got = {k: v.float().cpu() for k, v in model(x.cuda()).items()}
+        cpu_model = create_model(arch, device="cpu", **cfg)
+        cpu_model.load_state_dict({k: v.cpu() for k, v in
+                                   model.state_dict().items()})
+        want = cpu_model(x)
+    worst = 0.0
+    for key, r in want.items():
+        a = got[key]
+        if a.shape != r.shape or not torch.isfinite(a).all():
+            fail(f"{label} output {key}: shape {tuple(a.shape)} or "
+                 f"non-finite values")
+        worst = max(worst, float((a - r).abs().max()
+                                 / r.abs().max().clamp(min=1e-12)))
+    print(f"{label} forward, CUDA vs CPU on {tuple(x.shape)}: outputs "
+          f"{sorted(want)}, worst max |diff| / max |ref| = {worst:.2e}")
+    if worst > 1e-3:
+        fail(f"{label}: the CUDA forward disagrees with the CPU "
+             f"({worst:.2e} > 1e-3 of max |value|)")
+
+
+def gt_json(path, gt, label_divisor=1000):
+    """A ground-truth label volume as a tracker JSON (class 1)."""
+    from empanada_torch.cli.evaluate3d_bc import seg_to_tracker
+
+    labels = gt.astype(np.int64)
+    seg_to_tracker(labels + (labels > 0) * label_divisor,
+                   label_divisor=label_divisor).write_to_json(str(path))
+    return str(path)
+
+
+def write_crop(path, vol):
+    from empanada_torch.data.zarr_store import create_zarr
+
+    store = create_zarr(str(path), vol.shape, dtype=np.uint8)
+    store[:, :, :] = vol
+    return str(path)
+
+
+def phase_pdl(tmp):
+    """PanopticDeepLabPR from the recipe's MODEL block (resnet50, stage 4
+    at stride 16, decoder 256, ASPP 2/4/6, instance decoder at 0.5,
+    PointRend) at full width from a seeded init: its parameter count;
+    PDL, PDL-PR and PDL-BC forwards CUDA vs CPU; the orthoplane path on
+    synthetic_em_volume(ORTHO_SHAPE) (slices/s, K1 launches per axis,
+    host-core calls); ``evaluate3d`` on a crop against its ground truth;
+    the ground truth scored against itself. Returns (the volume, its
+    ground truth, K1 launches by path)."""
+    import torch
+
+    from empanada_torch.cli import evaluate3d
+    from empanada_torch.core import native
+    from empanada_torch.data.synthetic import synthetic_em_volume
+    from empanada_torch.evaluation.evaluator import default_evaluator
+    from empanada_torch.export import export_model
+    from empanada_torch.models import create_model
+    from empanada_torch.ops import group
+
+    arch, cfg = recipe_model(PDL_RECIPE)
+    model = create_model(arch, device="cuda", seed=0, **cfg)
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"{arch} ({cfg['encoder']}, stage4_stride {cfg['stage4_stride']}, "
+          f"decoder {cfg['decoder_channels']}, low-level stages "
+          f"{cfg['low_level_stages']} -> {cfg['low_level_channels_project']}"
+          f", ASPP rates {cfg['atrous_rates']}, instance decoder "
+          f"{cfg['ins_decoder']} at {cfg['ins_ratio']}): {n_params} "
+          f"parameters")
+    x = torch.from_numpy(np.random.default_rng(13).normal(
+        0, 1, (2, 1, 128, 128)).astype(np.float32))
+    forward_parity(arch, model, arch, cfg, x)
+    for other in ("PanopticDeepLab", "PanopticDeepLabBC"):
+        other_model = create_model(other, device="cuda", seed=0, **cfg)
+        forward_parity(other, other_model, other, cfg, x)
+        del other_model
+    torch.cuda.empty_cache()
+
+    t0 = time.time()
+    vol, gt = synthetic_em_volume(ORTHO_SHAPE, **SYNTH_GT)
+    print(f"synthetic_em_volume{ORTHO_SHAPE}: {len(np.unique(gt)) - 1} "
+          f"ground-truth instances, {time.time() - t0:.2f} s")
+    kwargs = inference_kwargs("orthoplane")
+    warm_axes(model, vol, kwargs, "pdl orthoplane")
+    result, _, _, launches = timed_orthoplane(model, vol, kwargs,
+                                              "pdl orthoplane")
+
+    export_model(model.state_dict(), dict(cfg, arch=arch),
+                 str(tmp / "pdl"), "pdl_pr", norms=NORMS)
+    crop_path = write_crop(tmp / "pdl_crop.zarr", vol[CROP])
+    truth = gt_json(tmp / "pdl_gt.json", gt[CROP])
+    group.reset_launches()
+    native.reset_calls()
+    t0 = time.time()
+    results = evaluate3d.main([str(tmp / "pdl" / "pdl_pr.yaml"), crop_path,
+                               truth, "-out-dir", str(tmp / "eval3d")])
+    seconds = time.time() - t0
+    eval_launches = group.LAUNCHES["group_pixels"]
+    host_path_ran("evaluate3d", HOST_REQUIRED)
+    print(f"evaluate3d on the {vol[CROP].shape} crop in {seconds:.3f} s "
+          f"(model load included), K1 launches {eval_launches}: " + ", ".join(
+              f"{k} {float(v):.4f}" for k, v in results.items()))
+    if eval_launches <= 0 or set(results) != set(
+            default_evaluator()(truth, truth)):
+        fail(f"evaluate3d: K1 launches {eval_launches}, metrics "
+             f"{sorted(results)}")
+
+    self_scores = default_evaluator()(truth, truth)
+    print("ground truth against itself: " + ", ".join(
+        f"{k} {float(v)!r}" for k, v in self_scores.items()))
+    # PQ's segmentation quality divides by tp + 1e-5 (the reference's
+    # epsilon), so it reaches 1 - 1e-5 / tp, not 1.0
+    for name, value in self_scores.items():
+        if (name != "pq" and float(value) != 1.0) or \
+                abs(float(value) - 1.0) > 1e-4:
+            fail(f"the ground truth against itself: {name} = {value}")
+    del model, result
+    torch.cuda.empty_cache()
+    return vol, gt, {"pdl_orthoplane": launches["total"],
+                     "pdl_orthoplane_by_axis": launches["per_axis"],
+                     "evaluate3d": eval_launches}
+
+
+def watershed_stacks(shape, seed=3):
+    """uint8 (2, Z, Y, X) semantic / contour stacks from
+    synthetic_em_volume's ground truth: high semantic inside objects,
+    high contour on their borders, plus noise."""
+    from scipy.ndimage import gaussian_filter
+
+    from empanada_torch.data.synthetic import synthetic_em_volume
+    from empanada_torch.data.utils.target_creation import seg_to_instance_bd
+
+    _, gt = synthetic_em_volume(shape, n_instances=40, seed=seed,
+                                radius=(4, 14), overlap=False)
+    rng = np.random.default_rng(seed)
+    sem = gaussian_filter((gt > 0).astype(np.float32), 1.0) * 255
+    cnt = gaussian_filter((seg_to_instance_bd(gt) > 0).astype(np.float32),
+                          0.7) * 400
+    return np.stack([np.clip(a + rng.normal(0, 8, shape), 0, 255)
+                     .astype(np.uint8) for a in (sem, cnt)])
+
+
+def ellipsoid_volume(shape=(24, 72, 64), n=3):
+    """Float volume of n disjoint ellipsoids at 1 on 0 with noise, and
+    their labels."""
+    d, h, w = shape
+    zz, yy, xx = np.mgrid[:d, :h, :w]
+    labels = np.zeros(shape, np.uint32)
+    for k in range(n):
+        inside = ((zz - d / 2) / (d / 2.6)) ** 2 \
+            + ((yy - h * (k + 0.5) / n) / (h / (2.4 * n))) ** 2 \
+            + ((xx - w / 2) / (w / 3.0)) ** 2 <= 1
+        labels[inside] = k + 1
+    noise = np.random.default_rng(14).normal(0, 0.05, shape)
+    return ((labels > 0) + noise).astype(np.float32), labels
+
+
+def phase_bc(vol, gt, dirs, tmp):
+    """PanopticDeepLabBC from the BC recipe at full width (seeded)
+    through run_bc_inference3d(orthoplane) on the PDL phase's volume;
+    the device watershed against the numpy one; the parameter-free BC
+    twin CUDA vs CPU and scored against its ellipsoids; ``evaluate3d_bc``
+    on the crop; one epoch of the BC recipe through Trainer.fit on the
+    training phase's set (validation through BCEngine)."""
+    import torch
+
+    from empanada_torch.cli import evaluate3d_bc
+    from empanada_torch.cli.evaluate3d_bc import (
+        run_bc_inference3d,
+        seg_to_tracker,
+    )
+    from empanada_torch.config import load_config
+    from empanada_torch.data.zarr_store import open_zarr
+    from empanada_torch.evaluation.evaluator import default_evaluator
+    from empanada_torch.export import export_model
+    from empanada_torch.inference.tracker import InstanceTracker
+    from empanada_torch.inference.watershed import (
+        bc_watershed,
+        bc_watershed_numpy,
+    )
+    from empanada_torch.models import create_model
+    from empanada_torch.synthetic import SyntheticBCModule
+    from empanada_torch.train import Trainer
+
+    arch, cfg = recipe_model(BC_RECIPE)
+    model = create_model(arch, device="cuda", seed=0, **cfg)
+    print(f"{arch} ({cfg['encoder']}): "
+          f"{sum(p.numel() for p in model.parameters())} parameters")
+    kwargs = dict(norms=NORMS, device="cuda", progress=False)
+    t0 = time.time()
+    for axis in range(3):
+        run_bc_inference3d(model, np.ascontiguousarray(
+            np.moveaxis(vol, axis, 0)[:4]), mode="stack", **kwargs)
+    torch.cuda.synchronize()
+    print(f"bc warm-up (4 slices of each slice shape): "
+          f"{time.time() - t0:.3f} s")
+    stats = {}
+    t0 = time.time()
+    seg = run_bc_inference3d(model, vol, stats=stats, **kwargs)
+    seconds = time.time() - t0
+    flood = stats["watershed"]
+    print(f"bc orthoplane: volume {vol.shape}, {sum(vol.shape)} slices in "
+          f"{seconds:.3f} s = {sum(vol.shape) / seconds:.2f} slices/s; "
+          f"per axis xy / xz / yz " + " / ".join(
+              f"{stats[f'{a}_seconds']:.3f}" for a in AXES)
+          + f" s; watershed (flood on the card) "
+          f"{stats['watershed_seconds']:.3f} s, {flood['levels']} levels, "
+          f"{flood['rounds']} rounds, {flood['checks']} checks; "
+          f"{len(np.unique(seg)) - 1} 3D instances")
+    if seg.shape != vol.shape:
+        fail(f"bc orthoplane: labels of shape {seg.shape}")
+
+    stacks = watershed_stacks(WATERSHED_SHAPE)
+    t0 = time.time()
+    want = bc_watershed_numpy(stacks, **WATERSHED_KW)
+    numpy_s = time.time() - t0
+    bc_watershed(stacks[:, :8], device="cuda", **WATERSHED_KW)  # warm
+    torch.cuda.synchronize()
+    flood = {}
+    t0 = time.time()
+    got = bc_watershed(stacks, device="cuda", stats=flood, **WATERSHED_KW)
+    device_s = time.time() - t0
+    print(f"watershed {WATERSHED_SHAPE} from synthetic ground truth: card "
+          f"{device_s:.3f} s, numpy {numpy_s:.3f} s; {flood['levels']} "
+          f"levels, {flood['rounds']} rounds, {flood['checks']} checks; "
+          f"{len(np.unique(want)) - 1} instances; labels equal: "
+          f"{np.array_equal(got, want)}")
+    if got.dtype != want.dtype or not np.array_equal(got, want) \
+            or len(np.unique(want)) < 2:
+        fail("the device watershed's labels differ from the numpy one's, "
+             "or it found no instance")
+
+    twin_vol, twin_labels = ellipsoid_volume()
+    twin_kw = dict(padding_factor=16, seg_thr=0.9, cnt_thr=0.3, fg_thr=0.5,
+                   seed_thres=4, min_size=16, progress=False)
+    on_card = run_bc_inference3d(SyntheticBCModule(), twin_vol,
+                                 device="cuda", **twin_kw)
+    on_cpu = run_bc_inference3d(SyntheticBCModule(), twin_vol, device="cpu",
+                                **twin_kw)
+    seg_to_tracker(on_card).write_to_json(str(tmp / "twin_pred.json"))
+    scores = default_evaluator()(gt_json(tmp / "twin_gt.json", twin_labels),
+                                 str(tmp / "twin_pred.json"))
+    print(f"bc twin on {twin_vol.shape} ellipsoids: "
+          f"{len(np.unique(on_card)) - 1} instances, CUDA == CPU "
+          f"{np.array_equal(on_card, on_cpu)}; F1@0.5 {scores['f1_50']:.4f}"
+          f", F1@0.75 {scores['f1_75']:.4f}, PQ {scores['pq']:.4f}")
+    if not np.array_equal(on_card, on_cpu) or scores["f1_50"] != 1:
+        fail("bc twin: the CUDA labels differ from the CPU's, or they miss "
+             "an ellipsoid")
+
+    export_model(model.state_dict(), dict(cfg, arch=arch), str(tmp / "bc"),
+                 "pdl_bc", norms=NORMS)
+    crop_path = write_crop(tmp / "bc_crop.zarr", vol[CROP])
+    truth = gt_json(tmp / "bc_gt.json", gt[CROP])
+    t0 = time.time()
+    results = evaluate3d_bc.main([str(tmp / "bc" / "pdl_bc.yaml"),
+                                  crop_path, truth, "-out-dir",
+                                  str(tmp / "eval_bc")])
+    seconds = time.time() - t0
+    tracker = InstanceTracker()
+    tracker.load_from_json(str(tmp / "eval_bc" / "pred_bc.json"))
+    stored = np.asarray(open_zarr(str(tmp / "bc_crop_bc_seg.zarr")))
+    if not np.array_equal(stored, dense_fill(stored.shape,
+                                             tracker.instances)):
+        fail("evaluate3d_bc: the _bc_seg.zarr store differs from a fill of "
+             "pred_bc.json")
+    print(f"evaluate3d_bc on the crop in {seconds:.3f} s (model load "
+          f"included): {len(tracker.instances)} instances, _bc_seg.zarr == "
+          f"fill of pred_bc.json; " + ", ".join(
+              f"{k} {float(v):.4f}" for k, v in results.items()))
+    del model
+    torch.cuda.empty_cache()
+
+    tcfg = load_config(BC_RECIPE)
+    tcfg["TRAIN"].update(train_dir=str(dirs["train"]),
+                         model_dir=str(tmp / "bc_models"), workers=7)
+    tcfg["TRAIN"]["schedule_params"]["epochs"] = 1
+    tcfg["EVAL"]["eval_dir"] = str(dirs["eval"])
+    trainer = Trainer(tcfg, device="cuda", seed=0)
+    loader = trainer.build_loader()
+    losses = []
+
+    def on_step(trainer, aux):
+        torch.cuda.synchronize()
+        losses.append(float(aux["total_loss"]))
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    history = trainer.fit(loader=loader, on_step=on_step)
+    torch.cuda.synchronize()
+    fit_seconds = time.time() - t0
+    steps_s, images_s, wait, counted = steady_rates(trainer.timeline,
+                                                    trainer.batch_size)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"bc train: {arch} ({cfg['encoder']}), {len(losses)} steps of "
+          f"batch {trainer.batch_size} in {fit_seconds:.3f} s (1 epoch, "
+          f"validation through {tcfg['EVAL']['engine']} and a checkpoint); "
+          f"steady {steps_s:.4f} steps/s = {images_s:.2f} images/s over "
+          f"{counted} steps; data-wait share {wait:.4f}; peak device memory "
+          f"{peak:.3f} GiB; amp {trainer.amp_dtype}; last aux "
+          f"{history[-1]}")
+    print("bc train losses per step: " + " ".join(f"{v:.5f}"
+                                                   for v in losses))
+    if not losses or not np.isfinite(losses).all():
+        fail(f"bc training: losses {losses}")
+    metrics = trainer.validate()
+    if list(metrics) != ["mito_semantic_iou"]:
+        fail(f"bc validation: metrics {metrics}")
+    del trainer, loader
+    torch.cuda.empty_cache()
 
 
 def main():
@@ -1726,9 +2116,15 @@ def main():
         phase_content(mode)
     # the training path: the fit (2 epochs, validation after each), a
     # validation alone, and the finetuned descriptor's stack inference,
-    # each with the counts set to 0 just before it
+    # each with the counts set to 0 just before it; then the
+    # Panoptic-DeepLab and boundary-contour families (the BC recipe
+    # trains on the training path's set)
     with tempfile.TemporaryDirectory() as tmp:
-        row["launches_by_path"]["training"] = phase_training(Path(tmp))
+        tmp = Path(tmp)
+        row["launches_by_path"]["training"], dirs = phase_training(tmp)
+        vol, gt, pdl_launches = phase_pdl(tmp)
+        row["launches_by_path"].update(pdl_launches)
+        phase_bc(vol, gt, dirs, tmp)
 
     print("kernels: group_pixels")
     print(json.dumps({"kernels": [row]}))

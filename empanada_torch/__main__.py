@@ -7,6 +7,8 @@ COMMANDS = {
     "train": "empanada_torch.cli.train",
     "finetune": "empanada_torch.cli.finetune",
     "export": "empanada_torch.cli.export",
+    "evaluate3d": "empanada_torch.cli.evaluate3d",
+    "evaluate3d_bc": "empanada_torch.cli.evaluate3d_bc",
 }
 
 

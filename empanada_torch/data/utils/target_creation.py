@@ -3,9 +3,10 @@
 The JAX package's ``heatmap_and_offsets`` without OpenCV: centroids
 from one bincount pass, then the Gaussian blur cv2.GaussianBlur gives a
 float32 image at ``ksize=(0, 0)`` (kernel size round(8 sigma + 1) | 1,
-cv2's kernel formula, zero border), as two separable passes. The
-contour target (``seg_to_instance_bd``) belongs to the boundary-contour
-family, which is not ported yet.
+cv2's kernel formula, zero border), as two separable passes; and the
+boundary-contour family's contour target (``seg_to_instance_bd``),
+with numpy reflect padding and scipy's binary dilation in place of
+cv2's.
 """
 
 from __future__ import annotations
@@ -98,8 +99,20 @@ def heatmap_and_offsets(sl2d, heatmap_sigma=6):
     return heatmap[..., None], offsets
 
 
-def seg_to_instance_bd(*args, **kwargs):
-    """The contour target waits for the boundary-contour family."""
-    raise NotImplementedError(
-        "seg_to_instance_bd is not ported yet: it comes with the "
-        "boundary-contour (BC) model family")
+def seg_to_instance_bd(seg, tsz_h=1):
+    """Instance seg stack (D, H, W) -> binary contour map (D, H, W) uint8:
+    1 where a pixel differs from a vertical or horizontal neighbour
+    (edges reflect, cv2's BORDER_REFLECT: the border pixel repeats),
+    dilated by a (2 tsz_h + 1)^2 square (cv2.dilate's zero border)."""
+    from scipy.ndimage import binary_dilation
+
+    seg = np.asarray(seg)
+    tsz = tsz_h * 2 + 1
+    structure = np.ones((tsz, tsz), bool)
+    bd = np.zeros(seg.shape, np.uint8)
+    for z in range(seg.shape[0]):
+        padded = np.pad(seg[z], 1, mode="symmetric")
+        edge = (padded[:-2, 1:-1] != padded[2:, 1:-1]) \
+            | (padded[1:-1, :-2] != padded[1:-1, 2:])
+        bd[z] = binary_dilation(edge, structure)
+    return bd

@@ -1,19 +1,31 @@
-"""2D inference engines: eval-mode model forward + panoptic postprocess.
+"""Per-slice inference engines: eval-mode model forward + panoptic
+postprocess, or the boundary-contour maps.
 
-The JAX package's ``PanopticDeepLabEngine`` and
-``PanopticDeepLabRenderEngine`` on the port's postprocess
+The JAX package's six engines on the port's postprocess
 (``ops/postprocess.py``), whose pixel grouping is the CUDA kernel
 ``csrc/group_pixels.cu`` on the card. ``EvalModel`` is the callable
 contract the engines drive, ``model(image, render_steps,
 interpolate_ins) -> dict`` of NCHW float32 maps. Images are NCHW
-(``(H, W)``, ``(C, H, W)`` or ``(1, C, H, W)``; batch size 1). The
-z-median 3D engines and the boundary-contour engines are not ported yet.
+(``(H, W)``, ``(C, H, W)`` or ``(1, C, H, W)``; batch size 1).
+
+- ``PanopticDeepLabEngine`` / ``PanopticDeepLabRenderEngine``: 2D.
+- ``...Engine3d``: the same behind a z-median window over consecutive
+  slices (``_MedianQueue``): ``__call__`` returns None while the window
+  fills, then the middle slice with median-filtered probabilities;
+  ``end()`` returns the slices still in the window, un-smoothed.
+- ``BCEngine`` / ``BCEngine3d``: sigmoid semantic and contour maps
+  stacked as NCHW ``(1, 2, H, W)`` (channel 0 semantic, 1 contour), the
+  reference's layout; the JAX package returns them NHWC. The 3D engine
+  factor-pads, medians the stacked maps and crops back.
+
+The fused blocked engine of ``run_inference3d`` is ``inference/fused.py``.
 """
 
 from __future__ import annotations
 
 import contextlib
 import math
+from collections import deque
 
 import numpy as np
 import torch
@@ -25,6 +37,7 @@ from empanada_torch.ops.postprocess import (
     group_pixels,
     harden_semantic,
     logits_to_prob,
+    median_small,
     merge_semantic_and_instance,
     thing_table,
 )
@@ -33,7 +46,11 @@ from empanada_torch.ops.resize import factor_pad
 __all__ = [
     "EvalModel",
     "PanopticDeepLabEngine",
+    "PanopticDeepLabEngine3d",
     "PanopticDeepLabRenderEngine",
+    "PanopticDeepLabRenderEngine3d",
+    "BCEngine",
+    "BCEngine3d",
     "ENGINES",
     "create_engine",
 ]
@@ -75,6 +92,54 @@ def _as_nchw(image, device):
     assert image.ndim == 4 and image.shape[0] == 1, \
         "engines are single-image (batch size 1)"
     return image.to(device=device, dtype=torch.float32)
+
+
+def _padded_infer(engine, image, upsampling):
+    """Factor-pad the image and infer at render_steps = 2 +
+    log2(upsampling) (the render and BC 3D engines)."""
+    assert math.log2(upsampling).is_integer(), \
+        "Upsampling factor not log base 2!"
+    image, _ = factor_pad(_as_nchw(image, engine.device),
+                          engine.padding_factor)
+    return engine.infer(image, int(2 + math.log2(upsampling)))
+
+
+class _MedianQueue:
+    """Sliding median window over the model outputs of consecutive
+    slices, kept on the device."""
+
+    def __init__(self, median_kernel_size: int):
+        assert median_kernel_size % 2 == 1, "Kernel size must be odd integer!"
+        self.ks = median_kernel_size
+        self.mid_idx = (median_kernel_size - 1) // 2
+        self.median_queue = deque(maxlen=median_kernel_size)
+
+    def reset(self):
+        self.median_queue = deque(maxlen=self.ks)
+
+    def enqueue(self, item):
+        self.median_queue.append(item)
+
+    def get_median(self, key):
+        return median_small(torch.stack([out[key]
+                                         for out in self.median_queue]))
+
+    def get_next(self, keys):
+        """While the queue holds at most ``mid_idx`` outputs, the newest
+        one as it is; while it fills past that, None; when full, the
+        middle output with ``keys`` median-filtered."""
+        nq = len(self.median_queue)
+        if nq <= self.mid_idx:
+            return self.median_queue[-1]
+        if nq < self.ks:
+            return None
+        output = dict(self.median_queue[self.mid_idx])
+        for key in keys:
+            output[key] = self.get_median(key)
+        return output
+
+    def remaining(self):
+        return list(self.median_queue)[self.mid_idx + 1:]
 
 
 class PanopticDeepLabEngine:
@@ -126,6 +191,26 @@ class PanopticDeepLabEngine:
         return self.postprocess(out["sem"], out["ctr_hmp"], out["offsets"])
 
 
+class PanopticDeepLabEngine3d(PanopticDeepLabEngine):
+    """``PanopticDeepLabEngine`` behind the z-median window."""
+
+    def __init__(self, *args, median_kernel_size=3, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.queue = _MedianQueue(median_kernel_size)
+
+    def end(self):
+        return [self.postprocess(o["sem"], o["ctr_hmp"], o["offsets"])
+                for o in self.queue.remaining()]
+
+    def __call__(self, image):
+        self.queue.enqueue(self.infer(image))
+        median_out = self.queue.get_next(keys=["sem"])
+        if median_out is None:
+            return None
+        return self.postprocess(median_out["sem"], median_out["ctr_hmp"],
+                                median_out["offsets"])
+
+
 class PanopticDeepLabRenderEngine(PanopticDeepLabEngine):
     """PointRend engine: factor-pad, infer with render_steps = 2 +
     log2(upsampling), group pixels on the coarse (1/4) grid when
@@ -167,36 +252,101 @@ class PanopticDeepLabRenderEngine(PanopticDeepLabEngine):
             sem, ins, self.label_divisor, table, self.stuff_area,
             self.void_label, self.max_centers, num_classes)[0]
 
-    def __call__(self, image, size, upsampling=1):
-        assert math.log2(upsampling).is_integer(), \
-            "Upsampling factor not log base 2!"
-        image, _ = factor_pad(_as_nchw(image, self.device),
-                              self.padding_factor)
-        out = self.infer(image, int(2 + math.log2(upsampling)))
+    def _finalize(self, out, upsampling, size):
         cells = self.get_instance_cells(out["ctr_hmp"], out["offsets"],
                                         upsampling)
         h, w = size
         return self.get_panoptic_seg(out["sem"], cells)[:h, :w]
 
+    def __call__(self, image, size, upsampling=1):
+        return self._finalize(_padded_infer(self, image, upsampling),
+                              upsampling, size)
+
+
+class PanopticDeepLabRenderEngine3d(PanopticDeepLabRenderEngine):
+    """``PanopticDeepLabRenderEngine`` behind the z-median window."""
+
+    def __init__(self, *args, median_kernel_size=3, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.queue = _MedianQueue(median_kernel_size)
+
+    def end(self, upsampling=1):
+        return [self._finalize(o, upsampling, o["size"])
+                for o in self.queue.remaining()]
+
+    def __call__(self, image, size, upsampling=1):
+        out = _padded_infer(self, image, upsampling)
+        out["size"] = size
+        self.queue.enqueue(out)
+        median_out = self.queue.get_next(keys=["sem"])
+        if median_out is None:
+            return None
+        return self._finalize(median_out, upsampling, size)
+
+
+def _bc_maps(out):
+    """(1, 2, H, W): sigmoid semantic (channel 0) and contour maps."""
+    assert out["sem_logits"].shape[1] == 1, "BC only works for binary"
+    return torch.cat([torch.sigmoid(out["sem_logits"]),
+                      torch.sigmoid(out["cnt_logits"])], dim=1)
+
+
+class BCEngine:
+    """Boundary-contour engine: ``__call__(image)`` -> NCHW (1, 2, H, W)
+    float32 (semantic, contour) probabilities. ``device``: CUDA unless
+    named."""
+
+    def __init__(self, model, device=None, **kwargs):
+        self.device = resolve_device(device)
+        self.model = model
+
+    def infer(self, image):
+        return {"bc": _bc_maps(self.model(_as_nchw(image, self.device)))}
+
+    def __call__(self, image):
+        return self.infer(image)["bc"]
+
+
+class BCEngine3d(BCEngine):
+    """``BCEngine`` with factor padding and the z-median window over the
+    stacked maps: ``__call__(image, size)`` -> (1, 2, h, w) cropped to
+    ``size``, or None while the window fills; ``end()`` -> the rest."""
+
+    def __init__(self, model, median_kernel_size=3, padding_factor=16,
+                 device=None, **kwargs):
+        super().__init__(model, device=device)
+        self.padding_factor = padding_factor
+        self.queue = _MedianQueue(median_kernel_size)
+
+    def infer(self, image, render_steps=2):
+        return {"bc": _bc_maps(self.model(image, render_steps))}
+
+    def end(self, upsampling=1):
+        return [o["bc"][..., :o["size"][0], :o["size"][1]]
+                for o in self.queue.remaining()]
+
+    def __call__(self, image, size, upsampling=1):
+        out = _padded_infer(self, image, upsampling)
+        out["size"] = size
+        self.queue.enqueue(out)
+        median_out = self.queue.get_next(keys=["bc"])
+        if median_out is None:
+            return None
+        return median_out["bc"][..., :size[0], :size[1]]
+
 
 ENGINES = {
     "PanopticDeepLabEngine": PanopticDeepLabEngine,
+    "PanopticDeepLabEngine3d": PanopticDeepLabEngine3d,
     "PanopticDeepLabRenderEngine": PanopticDeepLabRenderEngine,
+    "PanopticDeepLabRenderEngine3d": PanopticDeepLabRenderEngine3d,
+    "BCEngine": BCEngine,
+    "BCEngine3d": BCEngine3d,
 }
-# the z-median 3D engines run in the port as inference/fused.py's
-# FusedStackEngine behind run_inference3d; the per-slice classes and the
-# boundary-contour engines come with the other model families
-_NOT_PORTED = ("PanopticDeepLabEngine3d", "PanopticDeepLabRenderEngine3d",
-               "BCEngine", "BCEngine3d")
 
 
 def create_engine(name, model, **kwargs):
     """Registry lookup by the recipes' EVAL.engine name."""
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"engine {name!r} is not ported yet (the 3D and boundary-"
-            "contour engines come with the other model families); "
-            f"ported: {sorted(ENGINES)}")
     if name not in ENGINES:
         raise ValueError(f"unknown engine {name!r}; choices: {sorted(ENGINES)}")
     return ENGINES[name](model, **kwargs)

@@ -206,23 +206,26 @@ class ForwardMatcher:
                 break
 
     @staticmethod
-    def _match_one_class(matcher, rle_seg):
-        """Advance one class's stateful matcher by one slice; writes only
-        its own key of ``rle_seg`` (GIL-atomic dict assignment)."""
-        class_id = matcher.class_id
+    def _match_one_class(matcher, instances):
+        """Advance one class's stateful matcher by one slice; returns
+        (class_id, the class's matched instances). Reads only its own
+        class's instances and writes nothing shared."""
         if matcher.target_rle is None:
-            matcher.initialize_target(rle_seg[class_id])
-        else:
-            rle_seg[class_id] = matcher(rle_seg[class_id])
+            matcher.initialize_target(instances)
+            return matcher.class_id, instances
+        return matcher.class_id, matcher(instances)
 
     def _match(self, rle_seg):
         if self._class_pool is None:
             return apply_matchers(rle_seg, self.matchers)
         futures = [self._class_pool.submit(self._match_one_class, m,
-                                           rle_seg)
+                                           rle_seg[m.class_id])
                    for m in self.matchers]
+        # the coordinating thread writes the slice's dict; result()
+        # propagates per-class exceptions
         for f in futures:
-            f.result()  # propagate per-class exceptions
+            class_id, instances = f.result()
+            rle_seg[class_id] = instances
         return rle_seg
 
     def _check_worker(self):

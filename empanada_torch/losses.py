@@ -9,11 +9,11 @@ The JAX package's ``losses.py`` in PyTorch:
   channels and divided by the mask's sum (0 for an empty mask);
 - ``pointrend_loss``: CE between point logits and the GT sampled at the
   PointRend coordinates (nearest);
-- ``PanopticLoss``: the weighted composite returning (total, aux).
+- ``PanopticLoss``: the weighted composite returning (total, aux);
+- ``BCLoss``: the boundary-contour composite (semantic + contour).
 
 C = 1 uses sigmoid BCE, C > 1 softmax CE. The losses run in float32
-whatever the dtype of the model's outputs. ``BCLoss`` belongs to the
-boundary-contour family, which is not ported yet.
+whatever the dtype of the model's outputs.
 """
 
 from __future__ import annotations
@@ -122,12 +122,32 @@ class PanopticLoss:
 
 
 class BCLoss:
-    """The boundary-contour composite loss waits for the BC family."""
+    """Boundary-contour loss: bootstrapped CE on the semantic and the
+    contour logits, plus PointRend CE on both where the model emitted
+    points. ``target`` holds ``sem`` and ``cnt`` (N, H, W). Returns
+    (total, aux)."""
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "BCLoss is not ported yet: it comes with the boundary-contour "
-            "(BC) model family")
+    def __init__(self, pr_weight=1.0, top_k_percent=0.15, **kwargs):
+        self.pr_weight = pr_weight
+        self.top_k_percent = top_k_percent
+
+    def __call__(self, output, target):
+        sem_ce = bootstrap_ce(output["sem_logits"], target["sem"],
+                              self.top_k_percent)
+        cnt_ce = bootstrap_ce(output["cnt_logits"], target["cnt"],
+                              self.top_k_percent)
+        aux = {"sem_ce": sem_ce, "cnt_ce": cnt_ce}
+        total = sem_ce + cnt_ce
+        if "sem_points" in output:
+            sem_pr = pointrend_loss(output["sem_points"],
+                                    output["sem_point_coords"], target["sem"])
+            cnt_pr = pointrend_loss(output["cnt_points"],
+                                    output["cnt_point_coords"], target["cnt"])
+            aux["sem_pr_ce"] = sem_pr
+            aux["cnt_pr_ce"] = cnt_pr
+            total = total + self.pr_weight * (sem_pr + cnt_pr)
+        aux["total_loss"] = total
+        return total, aux
 
 
 LOSSES = {"PanopticLoss": PanopticLoss, "BCLoss": BCLoss}

@@ -1,5 +1,6 @@
-"""Model registry (config arch strings -> module classes) for the MitoNet
-slice: PanopticBiFPN and PanopticBiFPNPR, and the two inits: a
+"""Model registry (config arch strings -> module classes): the
+Panoptic-BiFPN family (MitoNet) and the Panoptic-DeepLab family (PDL,
+PDL-PR, PDL-BC), and the two inits: a
 signal-carrying one for inference checks (``init_random_``) and the JAX
 package's ``model.init`` distributions for training (``init_train_``)."""
 
@@ -7,8 +8,10 @@ from __future__ import annotations
 
 import inspect
 import math
+import re
 
 import torch
+from torch import nn
 
 from empanada_torch.device import resolve_device
 from empanada_torch.models.blocks import (
@@ -17,12 +20,29 @@ from empanada_torch.models.blocks import (
     SeparableConvBNAct,
     SqueezeExcite,
 )
+from empanada_torch.models.decoders.aspp import ASPP
+from empanada_torch.models.decoders.panoptic_deeplab import (
+    PanopticDeepLabDecoder,
+)
 from empanada_torch.models.encoders.regnet import Bottleneck
+from empanada_torch.models.encoders.resnet import (
+    BasicBlock,
+    BottleneckBlock,
+    ResNet,
+)
 from empanada_torch.models.heads import PanopticDeepLabHead
 from empanada_torch.models.panoptic_bifpn import PanopticBiFPN, PanopticBiFPNPR
+from empanada_torch.models.panoptic_deeplab import (
+    PanopticDeepLab,
+    PanopticDeepLabBC,
+    PanopticDeepLabPR,
+)
 from empanada_torch.models.point_rend import StandardPointHead
 
 MODELS = {
+    "PanopticDeepLab": PanopticDeepLab,
+    "PanopticDeepLabPR": PanopticDeepLabPR,
+    "PanopticDeepLabBC": PanopticDeepLabBC,
     "PanopticBiFPN": PanopticBiFPN,
     "PanopticBiFPNPR": PanopticBiFPNPR,
 }
@@ -97,10 +117,11 @@ def _glorot_uniform_(t, gen):
 @torch.no_grad()
 def init_train_(model: torch.nn.Module, seed: int):
     """The JAX package's ``model.init`` distributions, for training from
-    scratch: kaiming-normal (fan_out) convs, glorot-uniform separable
-    and transposed convs, std-0.001 normal heads (``head_normal``),
+    scratch: kaiming-normal (fan_out) convs (ResNet's included),
+    glorot-uniform separable and transposed convs, std-0.001 normal
+    heads, ASPP and Panoptic-DeepLab decoder convs (``head_normal``),
     kaiming-normal PointRend layers with a std-0.001 last layer, zero
-    biases, BN scale 1 (0 on each bottleneck's last BN, flax's
+    biases, BN scale 1 (0 on each RegNet bottleneck's last BN, flax's
     ``final_bn``), BN bias and running mean 0, running var 1 and BiFPN
     fusion weights 1. Values come from one CPU ``torch.Generator``."""
     gen = torch.Generator().manual_seed(seed)
@@ -109,15 +130,32 @@ def init_train_(model: torch.nn.Module, seed: int):
             continue
         if name.endswith("running_var") or name.endswith("fusion_weights"):
             t.fill_(1.0)
-        elif name.endswith("BatchNorm_0.weight"):
+        elif re.search(r"BatchNorm_\d+\.weight$", name):
             t.fill_(1.0)
         elif t.ndim < 2:
             t.zero_()
+    # modules whose convs take head_normal: the heads' separable convs
+    # and the Panoptic-DeepLab decoders' projections and fuses
     heads = {id(m.SeparableConvBNAct_0) for m in model.modules()
              if isinstance(m, PanopticDeepLabHead)}
+    for dec in model.modules():
+        if isinstance(dec, PanopticDeepLabDecoder):
+            heads.update(id(child) for name, child in dec.named_children()
+                         if name.startswith(("project_", "fuse_")))
     for mod in model.modules():
-        if isinstance(mod, ConvBNAct):
-            _kaiming_fan_out_(mod.Conv_0.weight, gen)
+        if isinstance(mod, (ResNet, BasicBlock, BottleneckBlock)):
+            for child in mod.children():
+                if isinstance(child, nn.Conv2d):
+                    _kaiming_fan_out_(child.weight, gen)
+        elif isinstance(mod, ASPP):
+            for child in mod.children():
+                if isinstance(child, nn.Conv2d):
+                    _normal_(child.weight, 0.001, gen)
+        elif isinstance(mod, ConvBNAct):
+            if id(mod) in heads:
+                _normal_(mod.Conv_0.weight, 0.001, gen)
+            else:
+                _kaiming_fan_out_(mod.Conv_0.weight, gen)
         elif isinstance(mod, SeparableConvBNAct):
             for conv in (mod.Conv_0, mod.Conv_1):
                 if id(mod) in heads:

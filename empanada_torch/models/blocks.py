@@ -25,6 +25,7 @@ __all__ = [
     "Interpolate2d",
     "Resize2d",
     "FlaxBatchNorm2d",
+    "bn",
 ]
 
 BN_EPS = 1e-5  # flax.linen.BatchNorm default
@@ -57,7 +58,8 @@ class FlaxBatchNorm2d(nn.BatchNorm2d):
         return out
 
 
-def _bn(features):
+def bn(features):
+    """The port's batch norm with flax's epsilon and momentum."""
     return FlaxBatchNorm2d(features, eps=BN_EPS, momentum=BN_MOMENTUM)
 
 
@@ -71,7 +73,7 @@ class ConvBNAct(nn.Module):
         pad = (kernel_size - 1) // 2
         self.Conv_0 = nn.Conv2d(in_features, features, kernel_size, stride,
                                 pad, groups=groups, bias=False)
-        self.BatchNorm_0 = _bn(features)
+        self.BatchNorm_0 = bn(features)
         self.act = act
 
     def forward(self, x):
@@ -89,7 +91,7 @@ class SeparableConvBNAct(nn.Module):
         self.Conv_0 = nn.Conv2d(in_features, in_features, kernel_size,
                                 stride, pad, groups=in_features, bias=False)
         self.Conv_1 = nn.Conv2d(in_features, features, 1, bias=False)
-        self.BatchNorm_0 = _bn(features)
+        self.BatchNorm_0 = bn(features)
         self.act = act
 
     def forward(self, x):
@@ -105,7 +107,7 @@ class ConvTransposeBNAct(nn.Module):
         self.ConvTranspose_0 = nn.ConvTranspose2d(
             in_features, features, kernel_size, stride=kernel_size,
             bias=False)
-        self.BatchNorm_0 = _bn(features)
+        self.BatchNorm_0 = bn(features)
         self.act = act
 
     def forward(self, x):

@@ -16,7 +16,11 @@ from torch import nn
 
 from empanada_torch.models.blocks import ConvBNAct, Resample2d, SqueezeExcite
 
-__all__ = ["RegNet", "RegNetConfig", "regnety_200mf", "regnety_6p4gf"]
+__all__ = [
+    "RegNet", "RegNetConfig",
+    "regnetx_6p4gf", "regnety_200mf", "regnety_800mf", "regnety_3p2gf",
+    "regnety_4gf", "regnety_6p4gf", "regnety_8gf", "regnety_16gf",
+]
 
 
 @dataclasses.dataclass
@@ -80,11 +84,16 @@ class Bottleneck(nn.Module):
 
 class RegNet(nn.Module):
     """Single-channel images -> the 5-level pyramid [stem/2, s1/4, s2/8,
-    s3/16, s4/32]."""
+    s3/16, s4/32]. ``output_stride=16`` sets the last stage's stride to 1
+    (no dilation, as in the JAX package and the reference)."""
 
-    def __init__(self, cfg: RegNetConfig):
+    def __init__(self, cfg: RegNetConfig, output_stride: int = 32):
         super().__init__()
+        assert output_stride in (16, 32), output_stride
         self.cfg = cfg
+        strides = list(cfg.strides)
+        if output_stride == 16:
+            strides[-1] = 1
         self.stem = ConvBNAct(1, cfg.w_stem, 3, stride=2)
         self.block_names = []
         nin = cfg.w_stem
@@ -94,7 +103,7 @@ class RegNet(nn.Module):
                 name = f"stage{i + 1}_block{j + 1}"
                 self.add_module(name, Bottleneck(
                     nin, cfg.widths[i], groups=cfg.groups[i],
-                    stride=cfg.strides[i] if j == 0 else 1,
+                    stride=strides[i] if j == 0 else 1,
                     bottle_ratio=cfg.bottle_ratio, use_se=cfg.use_se))
                 nin = cfg.widths[i]
                 names.append(name)
@@ -111,11 +120,45 @@ class RegNet(nn.Module):
         return features
 
 
-def regnety_200mf():
-    return RegNet(RegNetConfig(depth=13, w_0=24, w_a=36.44, w_m=2.49,
-                               group_w=8))
+def _make(params, **kw):
+    return RegNet(RegNetConfig(**params), **kw)
 
 
-def regnety_6p4gf():
-    return RegNet(RegNetConfig(depth=25, w_0=112, w_a=33.22, w_m=2.27,
-                               group_w=72, use_se=True))
+def regnetx_6p4gf(**kw):
+    return _make(dict(depth=17, w_0=184, w_a=60.83, w_m=2.07, group_w=56),
+                 **kw)
+
+
+def regnety_200mf(**kw):
+    return _make(dict(depth=13, w_0=24, w_a=36.44, w_m=2.49, group_w=8),
+                 **kw)
+
+
+def regnety_800mf(**kw):
+    return _make(dict(depth=14, w_0=56, w_a=38.84, w_m=2.4, group_w=16),
+                 **kw)
+
+
+def regnety_3p2gf(**kw):
+    return _make(dict(depth=21, w_0=80, w_a=42.63, w_m=2.66, group_w=24),
+                 **kw)
+
+
+def regnety_4gf(**kw):
+    return _make(dict(depth=22, w_0=96, w_a=31.41, w_m=2.24, group_w=64),
+                 **kw)
+
+
+def regnety_6p4gf(**kw):
+    return _make(dict(depth=25, w_0=112, w_a=33.22, w_m=2.27, group_w=72,
+                      use_se=True), **kw)
+
+
+def regnety_8gf(**kw):
+    return _make(dict(depth=17, w_0=192, w_a=76.82, w_m=2.19, group_w=56,
+                      use_se=True), **kw)
+
+
+def regnety_16gf(**kw):
+    return _make(dict(depth=18, w_0=200, w_a=106.23, w_m=2.48, group_w=112,
+                      use_se=True), **kw)

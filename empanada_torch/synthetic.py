@@ -1,4 +1,4 @@
-"""A parameter-free module honoring the engine contract, for content
+"""Parameter-free modules honoring the engine contracts, for content
 checks: decisive maps computed from the image itself.
 
 Twin of the JAX package's test module ``tests/synthetic.py``: semantic
@@ -6,14 +6,21 @@ logits +8/-8 where the image is > 0.5 (at input * 2^(render_steps-2)
 resolution), and at 1/4 resolution a Gaussian center heatmap on the
 slice's foreground centroid with offsets (input-resolution units)
 pointing at it. NCHW in and out.
+
+``SyntheticBCModule`` is the boundary-contour twin: semantic logits
++8/-8 where the image is > 0.5, contour logits +8 on the foreground's
+inner border (foreground pixels with a background pixel among their
+eight neighbours; outside the image counts as neither), -8 elsewhere,
+both at input * 2^(render_steps-2) resolution.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
-__all__ = ["SyntheticModule"]
+__all__ = ["SyntheticModule", "SyntheticBCModule"]
 
 
 class SyntheticModule(nn.Module):
@@ -44,3 +51,17 @@ class SyntheticModule(nn.Module):
                            (cx - xx).expand(b, hq, wq)], dim=1)
         return {"sem_logits": sem_logits, "ctr_hmp": ctr[:, None],
                 "offsets": off}
+
+
+class SyntheticBCModule(nn.Module):
+    num_classes = 1
+
+    def forward(self, images, render_steps=2, interpolate_ins=True):
+        m = (images > 0.5).float()                 # (B, 1, H, W)
+        eroded = -F.max_pool2d(-m, 3, stride=1, padding=1)
+        up = 2 ** (render_steps - 2)
+        out = {}
+        for key, mask in (("sem_logits", m), ("cnt_logits", m - eroded)):
+            mask = mask.repeat_interleave(up, 2).repeat_interleave(up, 3)
+            out[key] = mask * 16.0 - 8.0
+        return out

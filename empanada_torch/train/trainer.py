@@ -1,11 +1,12 @@
-"""Config-driven trainer: MitoNet training and finetuning on one device.
+"""Config-driven trainer: training and finetuning on one device (the
+MitoNet recipe, the Panoptic-DeepLab and boundary-contour recipes).
 
 The JAX package's ``Trainer`` in PyTorch, with the same recipe keys:
 
 - the model starts from the JAX package's init (``init_train_``), a
   port checkpoint or an exported descriptor (``whole_pretraining``);
 - one step: forward in train mode (batch statistics, PointRend points
-  from the trainer's ``torch.Generator``), ``PanopticLoss``, backward,
+  from the trainer's ``torch.Generator``), the recipe's loss, backward,
   clipping by global norm, the optimizer, the LR schedule; on CUDA with
   ``MODEL.dtype: bfloat16`` the forward and the loss run under
   ``torch.autocast`` in bfloat16 over float32 weights (no grad scaler),
@@ -17,6 +18,8 @@ The JAX package's ``Trainer`` in PyTorch, with the same recipe keys:
 - validation runs the 2D engine over EVAL.eval_dir (padded to a
   multiple of 128) and postprocesses predictions and GT targets to
   panoptic maps, both through the pixel-grouping kernel on the card;
+  with a boundary-contour engine (``BCEngine``) it scores the semantic
+  channel only;
 - checkpoints hold model, optimizer, schedule, step and epoch.
 
 DDP and multi-process training wait for the multi-device slice;
@@ -202,10 +205,13 @@ class Trainer:
 
     def to_device(self, batch):
         """A collated batch (NHWC numpy layout) -> NCHW float32 tensors
-        on the device: image (N, 1, H, W), sem (N, H, W), ctr_hmp
-        (N, 1, H, W), offsets (N, 2, H, W)."""
+        on the device: image (N, 1, H, W), sem (N, H, W), and those of
+        ctr_hmp (N, 1, H, W), offsets (N, 2, H, W) and the contour cnt
+        (N, H, W) that the dataset gives."""
         out = {}
-        for key in ("image", "sem", "ctr_hmp", "offsets"):
+        for key in ("image", "sem", "ctr_hmp", "offsets", "cnt"):
+            if key not in batch:
+                continue
             t = torch.as_tensor(batch[key]).to(self.device,
                                                non_blocking=True)
             if t.ndim == 4:
@@ -280,10 +286,19 @@ class Trainer:
                                           1) == 0)
         n_classes = int(self.config["MODEL"].get("num_classes", 1))
 
+        is_bc = not hasattr(engine, "postprocess")  # the BC engines
         for i in range(len(dataset)):
             ex = dataset[i]
             image = torch.from_numpy(ex["image"]).permute(2, 0, 1)[None]
             out = engine.infer(image)
+            tgt_sem = torch.from_numpy(
+                np.asarray(ex["sem"], np.float32)).to(self.device)
+            if is_bc:
+                # the BC engines give sigmoid maps and no centers: score
+                # the semantic channel only (logit sign = prob > 0.5)
+                meters.evaluate({"sem_logits": out["bc"][:, :1] - 0.5},
+                                {"sem": tgt_sem[None]})
+                continue
             if hasattr(engine, "get_instance_cells"):
                 cells = engine.get_instance_cells(out["ctr_hmp"],
                                                   out["offsets"])
@@ -294,8 +309,6 @@ class Trainer:
             pred_pan = pred_pan.cpu().numpy()
             if snapshot and i in track:
                 _save_eval_snapshot(logger, epoch, i, ex["image"], pred_pan)
-            tgt_sem = torch.from_numpy(
-                np.asarray(ex["sem"], np.float32)).to(self.device)
             if n_classes > 1:
                 tgt_prob = torch.stack([(tgt_sem == c).float()
                                         for c in range(n_classes)])

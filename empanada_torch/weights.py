@@ -35,6 +35,11 @@ _BN_LEAVES = {
 }
 
 
+# convs the JAX modules name themselves (ResNet's 7x7 stem); every
+# other conv is flax's auto-named ``Conv_<i>``
+_NAMED_CONVS = ("stem",)
+
+
 def _flatten(tree, prefix=()):
     for key, value in tree.items():
         path = prefix + (str(key),)
@@ -66,7 +71,7 @@ def _convert_leaf(collection, path, value):
         raise KeyError(f"unexpected leaf params/{'/'.join(path)}")
     if owner.startswith("ConvTranspose_") and v.ndim == 4:
         return f"{base}.weight", v[::-1, ::-1].transpose(2, 3, 0, 1)
-    if owner.startswith("Conv_") and v.ndim == 4:
+    if (owner.startswith("Conv_") or owner in _NAMED_CONVS) and v.ndim == 4:
         return f"{base}.weight", v.transpose(3, 2, 0, 1)
     if owner.startswith("Dense_") and v.ndim == 2:
         return f"{base}.weight", v.T

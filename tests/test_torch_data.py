@@ -287,9 +287,13 @@ def test_png_codec_round_trip_and_fallback_reader(tmp_path, monkeypatch):
 
 
 def test_unported_data_cases_raise():
-    with pytest.raises(NotImplementedError, match="BCDataset"):
-        t_create_dataset("BCDataset", ".")
-    with pytest.raises(NotImplementedError, match="seg_to_instance_bd"):
-        ttc.seg_to_instance_bd(np.zeros((1, 4, 4)))
+    """The distributed samplers wait for the multi-device slice; the
+    boundary-contour dataset and target are ported (their parity is in
+    test_torch_bc.py)."""
+    from empanada_torch.data import DATASETS, BCDataset
+
+    assert DATASETS["BCDataset"] is BCDataset
+    contour = ttc.seg_to_instance_bd(np.zeros((1, 4, 4)))
+    assert contour.dtype == np.uint8 and not contour.any()
     with pytest.raises(NotImplementedError, match="parallel"):
         t_sampler.DistributedWeightedSampler(4, np.ones(4))

@@ -3,7 +3,7 @@ F1 on seeded maps within 1e-12 of the JAX package's, the meters and
 ComposeMetrics; PanopticDeepLabEngine and PanopticDeepLabRenderEngine
 give the JAX package's panoptic ids exactly, on the parameter-free
 synthetic model and on the tiny MitoNet (converted weights); the
-engines refuse what is not ported and raise without a card."""
+engines raise on an unknown name and without a card."""
 
 import pytest
 
@@ -231,10 +231,13 @@ def test_engines_on_the_tiny_mitonet_give_jax_ids(tiny_pair, engine):
 
 
 def test_unported_engines_and_device_rules(monkeypatch):
+    """All six engine names are served now; an unknown name and a
+    missing card still raise."""
     for name in ("PanopticDeepLabEngine3d", "PanopticDeepLabRenderEngine3d",
                  "BCEngine", "BCEngine3d"):
-        with pytest.raises(NotImplementedError, match=name):
-            te.create_engine(name, None, thing_list=[1], device="cpu")
+        assert type(te.create_engine(name, None, thing_list=[1],
+                                     device="cpu")) is te.ENGINES[name]
+    assert len(te.ENGINES) == 6
     with pytest.raises(ValueError, match="unknown engine"):
         te.create_engine("Nope", None, thing_list=[1], device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

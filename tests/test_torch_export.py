@@ -272,10 +272,11 @@ def test_dispatcher(monkeypatch, capsys, tmp_path):
     from empanada_torch import __main__ as dispatcher
 
     assert list(dispatcher.COMMANDS) == ["infer3d", "train", "finetune",
-                                         "export"]
+                                         "export", "evaluate3d",
+                                         "evaluate3d_bc"]
     for argv, code in ((["empanada_torch"], 2),
                        (["empanada_torch", "--help"], 0),
-                       (["empanada_torch", "evaluate3d"], 2)):
+                       (["empanada_torch", "curate"], 2)):
         monkeypatch.setattr(sys, "argv", argv)
         with pytest.raises(SystemExit) as exc:
             dispatcher.main()

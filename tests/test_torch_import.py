@@ -42,6 +42,19 @@ TRAIN_MODULES = ("empanada_torch.train", "empanada_torch.train.trainer",
                  "empanada_torch.utils.logging",
                  "empanada_torch.cli.train", "empanada_torch.cli.finetune",
                  "empanada_torch.cli.export")
+# modules of the Panoptic-DeepLab / boundary-contour / evaluation slice
+EVAL_MODULES = ("empanada_torch.evaluation",
+                "empanada_torch.evaluation.evaluator",
+                "empanada_torch.inference.watershed",
+                "empanada_torch.inference.tile",
+                "empanada_torch.cli.evaluate3d",
+                "empanada_torch.cli.evaluate3d_bc",
+                "empanada_torch.models.panoptic_deeplab",
+                "empanada_torch.models.encoders.resnet",
+                "empanada_torch.models.decoders.aspp",
+                "empanada_torch.data.bc_dataset",
+                "empanada_torch.data.synthetic",
+                "empanada_torch.utils.profiling")
 
 
 def _port_sources():
@@ -53,7 +66,8 @@ def test_every_module_imports_with_jax_blocked():
     names = [m.name for m in pkgutil.walk_packages(
         empanada_torch.__path__, "empanada_torch.")]
     assert "empanada_torch.inference.fused" in names
-    assert set(NEW_MODULES + HOST_CORE_MODULES + TRAIN_MODULES) <= set(names)
+    assert set(NEW_MODULES + HOST_CORE_MODULES + TRAIN_MODULES
+               + EVAL_MODULES) <= set(names)
     blocked = BLOCKED + ("yaml", "cv2", "mlflow")
     code = (
         "import sys\n"
@@ -167,11 +181,42 @@ def test_dispatcher_lists_the_training_commands():
                           cwd=ROOT, capture_output=True, text=True,
                           timeout=120)
     assert proc.returncode == 0
-    for command in ("infer3d", "train", "finetune", "export"):
+    commands = {"infer3d", "train", "finetune", "export", "evaluate3d",
+                "evaluate3d_bc"}
+    for command in commands:
         assert command in proc.stdout
     from empanada_torch.__main__ import COMMANDS
 
-    assert set(COMMANDS) == {"infer3d", "train", "finetune", "export"}
+    assert set(COMMANDS) == commands
+
+
+def test_evaluation_and_bc_entry_points_raise_without_cuda(monkeypatch,
+                                                           tmp_path):
+    """The slice's entry points default to CUDA and raise without a
+    card; none of them falls back to the CPU or to the numpy flood."""
+    from empanada_torch.cli import evaluate3d, evaluate3d_bc
+    from empanada_torch.inference.engines import create_engine
+    from empanada_torch.inference.watershed import bc_watershed
+    from empanada_torch.synthetic import SyntheticBCModule
+
+    vol = np.zeros((2, 4, 8, 8), np.uint8)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for name in ("BCEngine", "BCEngine3d", "PanopticDeepLabEngine3d",
+                 "PanopticDeepLabRenderEngine3d"):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            create_engine(name, None, thing_list=[1])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        bc_watershed(vol)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        evaluate3d_bc.run_bc_inference3d(SyntheticBCModule(), vol[0])
+    for main in (evaluate3d.main, evaluate3d_bc.main):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            main([str(tmp_path / "m.yaml"), str(tmp_path / "v.npy"),
+                  str(tmp_path / "gt.json")])
+    # a CUDA device named where there is none raises in torch: no
+    # quiet CPU run
+    with pytest.raises((RuntimeError, AssertionError)):
+        bc_watershed(vol, device="cuda")
 
 
 def test_png_codec_reads_where_no_image_library_imports(tmp_path):
@@ -240,3 +285,35 @@ def test_group_kernel_matches_plain_on_card():
         want = group.group_pixels_plain(c, v, o, step)
         got = group.group_pixels_batched(c.cuda(), v.cuda(), o.cuda(), step)
         torch.testing.assert_close(got.cpu(), want, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_bc_decoding_on_card_equals_cpu():
+    """Runs only where a card is present (chip_smoke.py covers the same
+    ground at full size): the device flood equals the numpy plain
+    version, and the BC twin's labels on the card equal the CPU's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from empanada_torch.cli.evaluate3d_bc import run_bc_inference3d
+    from empanada_torch.inference.watershed import (
+        bc_watershed,
+        bc_watershed_numpy,
+    )
+    from empanada_torch.synthetic import SyntheticBCModule
+
+    rng = np.random.default_rng(0)
+    zz, yy, xx = np.mgrid[:12, :40, :36]
+    inside = ((zz - 6) / 5.0) ** 2 + ((yy - 20) / 15.0) ** 2 \
+        + ((xx - 18) / 12.0) ** 2 <= 1
+    vol = (inside + rng.normal(0, 0.05, inside.shape)).astype(np.float32)
+    kw = dict(padding_factor=16, seg_thr=0.9, cnt_thr=0.3, fg_thr=0.5,
+              seed_thres=4, min_size=16, progress=False)
+    got = run_bc_inference3d(SyntheticBCModule(), vol, device="cuda", **kw)
+    want = run_bc_inference3d(SyntheticBCModule(), vol, device="cpu", **kw)
+    np.testing.assert_array_equal(got, want)
+    assert len(np.unique(got)) == 2
+    stacks = np.stack([(inside * 200 + rng.integers(0, 50, inside.shape)),
+                       rng.integers(0, 120, inside.shape)]).astype(np.uint8)
+    kw = dict(thres1=0.7, thres2=0.4, thres3=0.3, seed_thres=2, min_size=4)
+    np.testing.assert_array_equal(bc_watershed(stacks, device="cuda", **kw),
+                                  bc_watershed_numpy(stacks, **kw))

@@ -115,7 +115,7 @@ def test_nearest_point_labels_round_half_to_even():
 
 def test_create_loss_and_bc_refusal():
     assert isinstance(tl.create_loss("PanopticLoss"), tl.PanopticLoss)
-    with pytest.raises(NotImplementedError, match="BCLoss"):
-        tl.create_loss("BCLoss")
+    bc = tl.create_loss("BCLoss", top_k_percent=0.15)
+    assert isinstance(bc, tl.BCLoss) and bc.top_k_percent == 0.15
     with pytest.raises(ValueError, match="unknown loss"):
         tl.create_loss("Nope")

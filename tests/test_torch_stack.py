@@ -93,6 +93,142 @@ def test_engine_packed_rows_match_jax(qlen, block_size):
                                            // block_size)
 
 
+class _FineTwin(SyntheticModule):
+    """The torch twin with the center heatmap and offsets repeated 4x
+    when ``interpolate_ins`` (the fine-boundary contract)."""
+
+    def forward(self, images, render_steps=2, interpolate_ins=False):
+        out = super().forward(images, render_steps)
+        if interpolate_ins:
+            for key in ("ctr_hmp", "offsets"):
+                out[key] = out[key].repeat_interleave(4, 2) \
+                    .repeat_interleave(4, 3)
+        return out
+
+
+class _JaxFineTwin(JaxSyntheticModule):
+    def apply(self, variables, images, train=False, render_steps=2,
+              interpolate_ins=False, **_):
+        import jax.numpy as jnp
+
+        out = super().apply(variables, images, train, render_steps)
+        if interpolate_ins:
+            for key in ("ctr_hmp", "offsets"):
+                out[key] = jnp.repeat(jnp.repeat(out[key], 4, axis=1), 4,
+                                      axis=2)
+        return out
+
+
+class _UpDS(_DS):
+    """Slices as a downsampled volume gives them: the size is the
+    full-resolution one."""
+
+    def __getitem__(self, i):
+        ex = super().__getitem__(i)
+        ex["size"] = tuple(2 * s for s in ex["size"])
+        return ex
+
+
+# engine branches beyond test_engine_packed_rows_match_jax's: the
+# shortest and a long median window, PointRend upsampling 2 (render
+# steps 3), the automatic block size, and fine boundaries (grouping at
+# full resolution)
+@pytest.mark.parametrize("case", [
+    dict(qlen=1), dict(qlen=7), dict(upsampling=2),
+    dict(block_size=None), dict(coarse_boundaries=False)],
+    ids=["qlen1", "qlen7", "upsampling2", "auto_block", "fine_boundaries"])
+def test_engine_branches_match_jax(case):
+    case = dict(case)
+    upsampling = case.pop("upsampling", 1)
+    qlen = case.pop("qlen", 3)
+    coarse = case.get("coarse_boundaries", True)
+    vol = _blob_volume(seed=40 + qlen + 3 * upsampling, d=13)
+    kwargs = dict(dict(thing_list=[1], label_divisor=100, stuff_area=0,
+                       median_kernel_size=qlen, padding_factor=16,
+                       max_centers=64, block_size=4,
+                       device_norms={"mean": 0.5, "std": 0.2}), **case)
+    ds = _UpDS(vol) if upsampling > 1 else _DS(vol)
+    jax_twin = JaxSyntheticModule() if coarse else _JaxFineTwin()
+    torch_twin = SyntheticModule() if coarse else _FineTwin()
+    want = _collect(JaxEngine(jax_twin, {}, **kwargs)
+                    .infer_blocks(ds, upsampling), len(vol))
+    got = _collect(FusedStackEngine(torch_twin, None, device="cpu", **kwargs)
+                   .infer_blocks(ds, upsampling), len(vol))
+    n_fg = 0
+    for z in range(len(vol)):
+        np.testing.assert_array_equal(got[z][0], want[z][0], err_msg=str(z))
+        np.testing.assert_array_equal(got[z][1], want[z][1], err_msg=str(z))
+        n_fg += int(got[z][1][0, 0])
+    assert n_fg > 0
+    if upsampling > 1:
+        assert got[0][0].shape[-1] >= 2 * vol.shape[2]
+
+
+@pytest.mark.parametrize("n_classes", [3, 24])
+def test_class_pool_matches_serial_apply_matchers(n_classes):
+    """Thing classes matched in ForwardMatcher's class pool (one thread a
+    class; 24 is more threads than cores, with a short switch interval):
+    the pool threads return each class's result and the coordinating
+    thread writes the slice's dict; the trackers equal those of the
+    serial apply_matchers loop, RLE for RLE."""
+    import sys
+
+    from empanada_torch.inference import patterns
+    from empanada_torch.inference.rle import pan_seg_to_rle_seg
+
+    classes, ld = list(range(1, n_classes + 1)), 1000
+    rng = np.random.default_rng(8)
+    d, h, w = 12, 40, 44
+    zz, yy, xx = np.mgrid[:d, :h, :w]
+    pan = np.zeros((d, h, w), np.int32)
+    for k in range(max(9, n_classes)):
+        c = classes[k % n_classes]
+        cz, cy, cx = rng.uniform(2, d - 2), rng.uniform(5, h - 5), \
+            rng.uniform(5, w - 5)
+        inside = ((zz - cz) / 3.0) ** 2 + ((yy - cy) / 5.0) ** 2 \
+            + ((xx - cx) / 6.0) ** 2 <= 1
+        # a new id on every other slice: the matchers must relink them
+        pan[inside] = c * ld + 1 + k + (zz[inside] % 2) * 50
+
+    def trackers_from(stack):
+        matchers = patterns.create_matchers(classes, ld)
+        trackers = patterns.create_axis_trackers({"xy": 0}, classes, ld,
+                                                 pan.shape)["xy"]
+        patterns.finish_axis(stack(matchers), matchers, trackers, d, 1, 1)
+        return trackers
+
+    def pooled(matchers):
+        fm = patterns.ForwardMatcher(matchers, classes, ld, classes)
+        assert fm._class_pool is not None
+        for z in range(d):
+            fm.put(pan[z])
+        return fm.finish()
+
+    def serial(matchers):
+        return [patterns.apply_matchers(
+            pan_seg_to_rle_seg(pan[z], classes, ld, classes), matchers)
+            for z in range(d)]
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        got = trackers_from(pooled)
+    finally:
+        sys.setswitchinterval(interval)
+    want = trackers_from(serial)
+    assert len(got) == len(want) == n_classes
+    for g, t in zip(got, want):
+        assert g.class_id == t.class_id
+        assert len(t.instances) >= 1
+        assert sorted(g.instances) == sorted(t.instances)
+        for label, attrs in t.instances.items():
+            assert tuple(g.instances[label]["box"]) == tuple(attrs["box"])
+            np.testing.assert_array_equal(g.instances[label]["starts"],
+                                          attrs["starts"])
+            np.testing.assert_array_equal(g.instances[label]["runs"],
+                                          attrs["runs"])
+
+
 def test_engine_overflow_and_auto_budget_match_jax():
     """A tiny run budget overflows: the header still carries the true
     count, the buffer the first runs; the auto budget and block size
