@@ -76,9 +76,27 @@ failure exits non-zero before the final line):
    ellipsoids; ``evaluate3d_bc`` on the crop (its ``_bc_seg.zarr`` ==
    a fill of its ``pred_bc.json``); one epoch of the BC recipe through
    ``Trainer.fit`` on phase 9's set, validation through ``BCEngine``
-   (steps/s, images/s, peak memory, the loss per step).
+   (steps/s, images/s, peak memory, the loss per step);
+12. artifacts: MitoNet at full width from its seeded init written as a
+   reference-layout TorchScript archive; ``python -m empanada_torch
+   export --from-torch --quantize`` on it (the imported state equals the
+   source bit for bit; the weight-only int8 artifact); a calibrated int8
+   export on the card (2 batches of 8 normalized slices of the
+   orthoplane volume: scope, calibrated paths, int8 products a forward,
+   the drift record); float32 and int8 orthoplane runs from the
+   descriptor on that volume (slices/s of both, per-axis times, K1
+   launches); for every distinct int8 conv shape of the encoder at the
+   xy block, the card path (im2col + ``torch._int_mm``) == the plain
+   path exactly, timed beside cuDNN float32; ``infer3d --quantized`` on
+   a crop;
+13. curation: ``curate dedup`` on PNG slices of the synthetic volume
+   (written patches == source pixels); ``PatchQualityFilter("resnet34")``
+   on the card over 1024 patches of 224^2 (images/s; CUDA vs CPU scores
+   on 32 patches, tolerance 1e-4); ``curate flipbooks``, ``split-stack``,
+   ``merge-batch`` and ``group-dirs`` on the result, checking the trees
+   they write.
 
-The line before the last is the kernel table (JSON); the last line is
+Each phase prints its seconds. The line before the last is the kernel table (JSON); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -1486,7 +1504,7 @@ def phase_train(dirs, tmp):
 
 def run_command(args, label):
     """python -m empanada_torch <args> from the checkout; fails on a
-    non-zero exit. Returns its seconds."""
+    non-zero exit. Returns (its seconds, its standard output)."""
     t0 = time.time()
     proc = subprocess.run([sys.executable, "-m", "empanada_torch", *args],
                           capture_output=True, text=True, timeout=600)
@@ -1496,7 +1514,7 @@ def run_command(args, label):
           f"\n{tail}")
     if proc.returncode != 0:
         fail(f"{label}: exit {proc.returncode}\n{proc.stderr[-3000:]}")
-    return seconds
+    return seconds, proc.stdout
 
 
 def phase_export(cfg, ckpt, tmp):
@@ -2062,6 +2080,447 @@ def phase_bc(vol, gt, dirs, tmp):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# model artifacts in and out, and the curation toolkit
+# ---------------------------------------------------------------------------
+
+# int8 tensor-core peak of one H100 SXM (NVIDIA data sheet, dense)
+PEAK_INT8_OPS = 1979e12
+
+
+def reference_layout(model):
+    """The reference's torch layout of a port model's state: keys
+    ``module.m{i}.weight`` / ``.bias`` / ``.weights`` (BiFPN fusion) and
+    batch norms ``module.bn{i}.*`` with their running statistics, in the
+    reference's registration order (``train.torch_weights``), PointRend's
+    layers as Conv1d (out, in, 1), a ``fc.`` head the converters skip and
+    the first BiFPN after-combine conv under two keys (one tensor)."""
+    import torch
+
+    from empanada_torch.train.torch_weights import _port_leaves
+
+    params, stats = _port_leaves(model.state_dict())
+    names, sd, aliased = {}, {}, False
+    for path, (_, t) in params.items():
+        mod, leaf = path[:-1], path[-1]
+        in_bn = any("BatchNorm" in seg for seg in mod)
+        names.setdefault(mod, f"{'bn' if in_bn else 'm'}{len(names)}")
+        base = "module." + names[mod]
+        v = t.detach().cpu().clone()
+        if in_bn:
+            sd[f"{base}.{'weight' if leaf == 'scale' else 'bias'}"] = v
+            if leaf == "bias":
+                for stat in ("mean", "var"):
+                    sd[f"{base}.running_{stat}"] = \
+                        stats[mod + (stat,)][1].detach().cpu().clone()
+                sd[f"{base}.num_batches_tracked"] = torch.tensor(0)
+            continue
+        if leaf == "kernel" and v.ndim == 2:
+            v = v[:, :, None]  # Linear -> the reference's Conv1d
+        key = {"kernel": "weight", "fusion_weights": "weights"}.get(leaf,
+                                                                     leaf)
+        sd[f"{base}.{key}"] = v
+        if not aliased and "after" in mod and leaf == "kernel":
+            sd[f"{base}_shared.{key}"] = v
+            aliased = True
+    sd["module.fc.weight"] = torch.ones(2, 8)
+    sd["module.fc.bias"] = torch.zeros(2)
+    return sd
+
+
+def torchscript_archive(sd, path):
+    """torch.jit.save of a module tree whose state dict is ``sd``."""
+    import torch
+    from torch import nn
+
+    root = nn.Identity()
+    for key, t in sd.items():
+        *mods, leaf = key.split(".")
+        m = root
+        for name in mods:
+            if not hasattr(m, name):
+                m.add_module(name, nn.Identity())
+            m = getattr(m, name)
+        m.register_buffer(leaf, t)
+    torch.jit.save(torch.jit.script(root), str(path))
+
+
+def calibration_batches(vol, n=2, b=8):
+    """n batches of b normalized xy slices of ``vol`` on the card, the
+    factor-pad ring zero, as the engine feeds the model."""
+    import torch
+
+    from empanada_torch.ops.resize import factor_pad
+
+    x = (vol[:n * b].astype(np.float32) / 255.0 - NORMS["mean"]) \
+        / NORMS["std"]
+    x, _ = factor_pad(x, 128)
+    x = torch.from_numpy(np.ascontiguousarray(x)).cuda()[:, None]
+    return [x[i * b:(i + 1) * b] for i in range(n)]
+
+
+def encoder_conv_shapes(model, x):
+    """{(input shape, weight shape, stride, padding, dilation, groups):
+    calls} of the int8 convolutions of the encoder in one forward."""
+    import torch
+
+    from empanada_torch.export import FORWARD_KW
+    from empanada_torch.models.quantization import Int8Conv2d
+
+    shapes = {}
+
+    def pre(module, args):
+        key = (tuple(args[0].shape), tuple(module.weight_int8.shape),
+               tuple(module.stride), tuple(module.padding),
+               tuple(module.dilation), module.groups)
+        shapes[key] = shapes.get(key, 0) + 1
+
+    handles = [m.register_forward_pre_hook(pre)
+               for name, m in model.named_modules()
+               if isinstance(m, Int8Conv2d) and name.startswith("encoder")]
+    with torch.inference_mode():
+        model(x, **FORWARD_KW)
+    for h in handles:
+        h.remove()
+    return shapes
+
+
+# int8 conv shapes (input, weight) on which cuBLASLt refuses an int8
+# product whose outer size is 8 modulo 16 (the card path pads it to 16)
+INT8_EDGE_CONVS = [((24, 32, 128, 192), (168, 32, 1, 1)),
+                   ((24, 40, 64, 96), (40, 40, 1, 1))]
+
+
+def phase_int8_convs(model, x):
+    """For every distinct int8 conv shape of the encoder at the main
+    path's xy block: the card path (im2col + torch._int_mm) == the plain
+    path (float64 convolution) exactly on seeded int8 operands; its time
+    (CUDA events) beside cuDNN's float32 convolution of the same shape
+    (TF32 off) and the bound (int8 bytes in, int32 out, at 3.35 TB/s; or
+    the products at the int8 tensor-core peak). Returns the rows."""
+    import torch
+    import torch.nn.functional as F
+
+    from empanada_torch.ops import int8
+
+    shapes = encoder_conv_shapes(model, x)
+    rows = []
+    for i, ((xs, ws, s, p, d, g), calls) in enumerate(sorted(
+            shapes.items())):
+        gen = torch.Generator(device="cuda").manual_seed(i)
+        xq = torch.randint(-127, 128, xs, dtype=torch.int8, device="cuda",
+                           generator=gen)
+        w8 = torch.randint(-127, 128, ws, dtype=torch.int8, device="cuda",
+                           generator=gen)
+        card = int8.int8_conv2d_card(xq, w8, s, p, d, g)
+        plain = int8.int8_conv2d_plain(xq, w8, s, p, d, g)
+        torch.cuda.synchronize()
+        if card.dtype != torch.int32 or not torch.equal(card, plain):
+            fail(f"int8 conv {xs} * {ws} stride {s} groups {g}: card path "
+                 f"!= plain path")
+        xf, wf = xq.float(), w8.float()
+        ms = cuda_ms(lambda: int8.int8_conv2d_card(xq, w8, s, p, d, g),
+                     reps=10)
+        cudnn_ms = cuda_ms(lambda: F.conv2d(xf, wf, None, s, p, d, g),
+                           reps=10)
+        n_bytes = xq.numel() + w8.numel() + card.numel() * 4
+        n_ops = 2 * card.numel() * ws[1] * ws[2] * ws[3]
+        by_bytes = n_bytes / PEAK_BYTES * 1e3
+        by_ops = n_ops / PEAK_INT8_OPS * 1e3
+        row = {"x": list(xs), "w": list(ws), "stride": s[0],
+               "dilation": d[0], "groups": g, "calls": calls, "ms": ms,
+               "cudnn_f32_ms": cudnn_ms, "bound_ms": max(by_bytes, by_ops),
+               "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
+        rows.append(row)
+        print(f"int8 conv {tuple(xs)} * {tuple(ws)} stride {s[0]} groups "
+              f"{g} ({calls} call(s) a forward): card == plain exactly; "
+              f"{ms:.4f} ms, cuDNN float32 {cudnn_ms:.4f} ms, bound "
+              f"{row['bound_ms']:.5f} ms ({row['bound_by']})")
+    for xs, ws in INT8_EDGE_CONVS:
+        xq = torch.randint(-127, 128, xs, dtype=torch.int8, device="cuda")
+        w8 = torch.randint(-127, 128, ws, dtype=torch.int8, device="cuda")
+        if not torch.equal(int8.int8_conv2d_card(xq, w8),
+                           int8.int8_conv2d_plain(xq, w8)):
+            fail(f"int8 conv {xs} * {ws}: card path != plain path")
+        # the same 1x1 product unpadded, straight to cuBLASLt
+        a = xq.permute(0, 2, 3, 1).reshape(-1, xs[1]).contiguous()
+        try:
+            torch._int_mm(a, w8.reshape(ws[0], -1).contiguous().t())
+            torch.cuda.synchronize()
+            raw = "accepts"
+        except RuntimeError:
+            raw = "refuses"
+        print(f"int8 conv edge shape {xs} * {ws}: card == plain exactly; "
+              f"torch._int_mm {raw} the unpadded ({a.shape[0]} x "
+              f"{xs[1]}) @ ({xs[1]} x {ws[0]}) product")
+    total = sum(r["ms"] * r["calls"] for r in rows)
+    total_f32 = sum(r["cudnn_f32_ms"] * r["calls"] for r in rows)
+    print(f"int8 encoder convs: {len(rows)} distinct shapes, "
+          f"{sum(r['calls'] for r in rows)} calls a forward at {tuple(x.shape)}"
+          f"; summed {total:.3f} ms int8 card path against {total_f32:.3f} "
+          f"ms cuDNN float32")
+    return rows
+
+
+def phase_artifacts(vol, tmp):
+    """Full-width MitoNet through the artifacts: a reference-layout
+    TorchScript archive -> ``export --from-torch --quantize`` (imported
+    state == source, bit for bit); a calibrated int8 export on the card
+    (scope, paths, int8 products a forward, drift); float32 and int8
+    orthoplane runs from the descriptor in this call; the encoder's int8
+    conv shapes, card == plain; ``infer3d --quantized`` on a crop.
+    Returns K1 launches by path."""
+    import torch
+    import yaml
+
+    from empanada_torch.export import (
+        FORWARD_KW,
+        export_model,
+        load_exported_model,
+    )
+    from empanada_torch.models import create_model
+    from empanada_torch.export import INT8_SUFFIX
+    from empanada_torch.models.quantization import (
+        Int8Conv2d,
+        Int8Linear,
+        int8_conv_count,
+    )
+
+    tmp = Path(tmp) / "artifacts"
+    tmp.mkdir()
+    cfg = dict(MITONET)
+    model = create_model(cfg.pop("arch"), device="cpu", seed=0, **cfg)
+    state = model.state_dict()
+    t0 = time.time()
+    archive = tmp / "MitoNet_reference.pth"
+    sd = reference_layout(model)
+    torchscript_archive(sd, archive)
+    print(f"reference-layout TorchScript archive of MitoNet: {len(sd)} "
+          f"tensors, {archive.stat().st_size / 2 ** 20:.1f} MiB, "
+          f"{time.time() - t0:.2f} s")
+    recipe = tmp / "mitonet.yaml"
+    with open(recipe, "w") as f:
+        yaml.safe_dump({"MODEL": dict(MITONET),
+                        "DATASET": {"labels": [1], "thing_list": [1],
+                                    "class_names": {1: "mito"},
+                                    "norms": NORMS}}, f)
+    run_command(["export", str(recipe), str(archive), str(tmp / "imported"),
+                 "--from-torch", "--quantize", "-name", "mitonet"],
+                "export --from-torch --quantize")
+    imported = torch.load(tmp / "imported" / "mitonet.pth",
+                          weights_only=True)
+    if sorted(imported) != sorted(state) or not all(
+            torch.equal(imported[k], state[k]) for k in state):
+        fail("export --from-torch: the imported state differs from the "
+             "source")
+    weight_only = torch.load(tmp / "imported" / "mitonet.int8.pth",
+                             weights_only=True)
+    n_w8 = sum(k.endswith(INT8_SUFFIX) for k in weight_only)
+    print(f"export --from-torch --quantize: imported state == source bit "
+          f"for bit ({len(state)} tensors); weight-only int8 artifact with "
+          f"{n_w8} int8 weights")
+    del model, imported, weight_only, sd
+
+    batches = calibration_batches(vol)
+    t0 = time.time()
+    desc = export_model(state, MITONET, str(tmp), "mitonet_int8",
+                        norms=NORMS, quantize=True,
+                        calibration_data=batches, device="cuda")
+    torch.cuda.synchronize()
+    print(f"calibrated int8 export on 2 batches of {tuple(batches[0].shape)}"
+          f" in {time.time() - t0:.2f} s: scope {desc['quantize_scope']}, "
+          f"{len(desc['act_scales'])} calibrated paths, drift "
+          f"{desc['int8_drift']}")
+    desc_path = tmp / "mitonet_int8.yaml"
+    model8, _ = load_exported_model(str(desc_path), quantized=True,
+                                    device="cuda")
+    n_mod = sum(isinstance(m, (Int8Conv2d, Int8Linear))
+                for m in model8.modules())
+    n_calls = int8_conv_count(model8, batches[0], **FORWARD_KW)
+    print(f"int8 model: {n_mod} int8 modules, {n_calls} int8 products a "
+          f"forward")
+    if n_mod <= 0 or n_calls < n_mod:
+        fail(f"the int8 model runs {n_calls} int8 products with {n_mod} "
+             f"int8 modules")
+
+    kwargs = inference_kwargs("orthoplane")
+    model32, _ = load_exported_model(str(desc_path), device="cuda")
+    rates, launches = {}, {}
+    for label, m in (("float32", model32), ("int8", model8)):
+        warm_axes(m, vol, kwargs, f"{label} orthoplane")
+        _, _, seconds, launches[label] = timed_orthoplane(
+            m, vol, kwargs, f"{label} orthoplane")
+        rates[label] = sum(vol.shape) / seconds
+    print(f"orthoplane from the descriptor, this call: float32 "
+          f"{rates['float32']:.2f} slices/s, int8 {rates['int8']:.2f} "
+          f"slices/s ({rates['int8'] / rates['float32']:.3f}x); K1 launches "
+          f"by axis float32 {launches['float32']['per_axis']}, int8 "
+          f"{launches['int8']['per_axis']}")
+    del model32
+
+    xy = GROUP_SHAPES["xy"][0]
+    x = calibration_batches(vol, n=1, b=xy)[0]
+    phase_int8_convs(model8, x)
+    del model8, batches, x
+    torch.cuda.empty_cache()
+
+    crop = write_crop(tmp / "crop.zarr", vol[:40, :100, :150])
+    _, out = run_command(["infer3d", str(desc_path), crop, "--quantized",
+                          "-mode", "orthoplane"], "infer3d --quantized")
+    seg = tmp / "crop_orthoplane_seg_class1.zarr"
+    if "WARNING: int8 artifact (scope=encoder) measured drift" not in out \
+            or not (seg / ".zarray").exists():
+        fail("infer3d --quantized: no drift warning or no class zarr")
+    print("infer3d --quantized: " + next(
+        line for line in out.splitlines() if line.startswith("WARNING")))
+    return {"int8_orthoplane": launches["int8"]["total"],
+            "int8_orthoplane_by_axis": launches["int8"]["per_axis"]}
+
+
+def quality_patches(n=1024, side=224, seed=21):
+    """n seeded 224^2 crops of a synthetic EM volume."""
+    from empanada_torch.data.synthetic import synthetic_em_volume
+
+    vol, _ = synthetic_em_volume((16, 448, 448), n_instances=60, seed=seed,
+                                 radius=(6, 24), overlap=False)
+    rng = np.random.default_rng(seed)
+    zs = rng.integers(0, vol.shape[0], n)
+    ys, xs = (rng.integers(0, 448 - side, n) for _ in range(2))
+    return [vol[z, y:y + side, x:x + side] for z, y, x in zip(zs, ys, xs)]
+
+
+def _tree_files(root):
+    return sorted(str(p.relative_to(root)) for p in Path(root).rglob("*")
+                  if p.is_file())
+
+
+def phase_curation(vol, gt, tmp):
+    """``curate dedup`` on PNG slices of the synthetic volume (written
+    patches == the source's pixels); PatchQualityFilter("resnet34") on
+    the card over 1024 patches of 224^2 (images/s; CUDA scores against
+    the CPU's on 32 of them); ``flipbooks``, ``split-stack``,
+    ``merge-batch`` and ``group-dirs`` on the result, checking the trees
+    they write."""
+    import torch
+
+    from empanada_torch.data import curation as cur
+    from empanada_torch.data.image_files import read_tiff, write_png
+
+    root = Path(tmp) / "curation"
+    (root / "images").mkdir(parents=True)
+    (root / "masks").mkdir()
+    zs = range(0, vol.shape[0], 6)
+    for z in zs:
+        write_png(str(root / "images" / f"synth-LOC-{z}.png"), vol[z])
+        write_png(str(root / "masks" / f"synth-LOC-{z}.png"),
+                  gt[z].astype(np.uint16))
+    run_command(["curate", "dedup", str(root / "images"),
+                 str(root / "dedup"), "--mask-dir", str(root / "masks"),
+                 "--crop-size", "128"], "curate dedup")
+    kept = sorted((root / "dedup" / "synth" / "images").glob("*.tiff"))
+    for path in kept:
+        stem = path.stem  # synth-LOC-<z>-LOC-2d-<ys>-<ye>_<xs>-<xe>
+        z = int(stem.split("-LOC-")[1])
+        (ys, ye), (xs, xe) = (map(int, part.split("-")) for part in
+                              stem.split("-LOC-2d-")[1].split("_"))
+        if not np.array_equal(read_tiff(str(path)), vol[z, ys:ye, xs:xe]):
+            fail(f"curate dedup: {path.name} differs from its source")
+    n_masks = len(list((root / "dedup" / "synth" / "masks").glob("*.tiff")))
+    print(f"curate dedup: {len(kept)} of {4 * len(zs)} patches kept from "
+          f"{len(zs)} slices, {n_masks} masks; every written patch == its "
+          f"source pixels")
+    if not kept or n_masks != len(kept):
+        fail("curate dedup wrote no patches, or not one mask a patch")
+
+    patches = quality_patches()
+    filt = cur.PatchQualityFilter("resnet34", device="cuda", seed=0)
+    filt.predict(patches[:64])
+    torch.cuda.synchronize()
+    t0 = time.time()
+    scores = filt.predict(patches, batch_size=64)
+    torch.cuda.synchronize()
+    seconds = time.time() - t0
+    xs = filt._prep(patches)
+    with torch.inference_mode():
+        batch = torch.from_numpy(xs[:64]).cuda()
+        fwd_ms = cuda_ms(lambda: filt.model(batch), reps=10)
+    cpu = cur.PatchQualityFilter("resnet34", device="cpu", state_dict={
+        k: v.cpu() for k, v in filt.model.state_dict().items()})
+    err = float(np.abs(cpu.predict(patches[:32]) - scores[:32]).max())
+    keep, drop, _ = filt.filter(patches, float(np.median(scores)), 0.1)
+    print(f"PatchQualityFilter(resnet34) on the card: {len(patches)} "
+          f"patches of 224^2 in {seconds:.3f} s = "
+          f"{len(patches) / seconds:.1f} images/s (host resize and "
+          f"normalization included); the forward alone "
+          f"{64 / fwd_ms * 1e3:.1f} images/s at batch 64; CUDA vs CPU "
+          f"scores on 32 patches max |diff| {err:.2e} (tolerance 1e-4); "
+          f"filter keeps {len(keep)}, rejects {len(drop)}")
+    if not np.isfinite(scores).all() or err > 1e-4:
+        fail(f"PatchQualityFilter: scores on the card disagree with the "
+             f"CPU ({err:.2e}) or are not finite")
+
+    np.save(root / "vol.npy", vol)
+    ids = [i for i in np.unique(gt) if i][:6]
+    centers = [[int(round(c)) for c in np.argwhere(gt == i).mean(axis=0)]
+               for i in ids]
+    with open(root / "locs.json", "w") as f:
+        json.dump(centers, f)
+    run_command(["curate", "flipbooks", str(root / "vol.npy"),
+                 str(root / "locs.json"), str(root / "books.npy"),
+                 "--span", "5", "--size", "96"], "curate flipbooks")
+    books = np.load(root / "books.npy")
+    if not np.array_equal(books, cur.flipbooks_from_locations(
+            vol, centers, 5, 96)):
+        fail("curate flipbooks: the books differ from the library's")
+    masks = cur.flipbooks_from_locations(gt, centers, 5, 96)
+    np.save(root / "books_img.npy", books.reshape(-1, 96, 96))
+    np.save(root / "books_msk.npy", masks.reshape(-1, 96, 96))
+    attrs = [{"image_name": f"{'synth' if i % 2 else 'other'}-ROI-{i}.png",
+              "start": 5 * i, "end": 5 * i + 4, "median_confidence": 3 + i % 3,
+              "height": 96, "width": 96} for i in range(len(centers))]
+    with open(root / "attrs.json", "w") as f:
+        json.dump(attrs, f)
+    run_command(["curate", "split-stack", str(root / "books_img.npy"),
+                 str(root / "books_msk.npy"), str(root / "attrs.json"),
+                 str(root / "batch")], "curate split-stack")
+    for i in range(len(centers)):
+        name = attrs[i]["image_name"][:-4]
+        image = read_tiff(str(root / "batch" / "images" / f"{name}.tiff"))
+        if not np.array_equal(image, books[i, 2]):
+            fail(f"curate split-stack: {name} is not its book's middle "
+                 f"slice")
+    run_command(["curate", "merge-batch", str(root / "batch"),
+                 str(root / "train")], "curate merge-batch")
+    with open(root / "conv.json", "w") as f:
+        json.dump({"other": "synth"}, f)
+    run_command(["curate", "group-dirs", str(root / "train"),
+                 str(root / "conv.json")], "curate group-dirs")
+    tree = _tree_files(root / "train")
+    names = [a["image_name"][:-4] + ".tiff" for a in attrs]
+    want = sorted(["synth/confidences.json"]
+                  + [f"synth/{sub}/{n}" for n in names
+                     for sub in ("images", "masks")]
+                  + ["other/confidences.json"])
+    with open(root / "train" / "synth" / "confidences.json") as f:
+        conf = json.load(f)
+    if tree != want or sorted(conf) != sorted(names):
+        fail(f"curate: the training tree {tree} is not {want}")
+    print(f"curate flipbooks -> split-stack -> merge-batch -> group-dirs: "
+          f"{len(books)} books of (5, 96, 96); the training tree holds "
+          f"{len(tree)} files, confidences for {len(conf)} images")
+
+
+T_START = time.time()
+
+
+def timed_phase(label, fn, *args):
+    """fn(*args), printing the phase's seconds."""
+    t0 = time.time()
+    out = fn(*args)
+    print(f"phase {label}: {time.time() - t0:.1f} s")
+    return out
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", action="store_true",
@@ -2086,21 +2545,24 @@ def main():
     from empanada_torch.device import set_parity_numerics
 
     set_parity_numerics()
-    phase_build()
+    timed_phase("2 build", phase_build)
     trackers = density_trackers()
-    phase_host_core(trackers)
-    row = phase_group_kernel()
-    launches, model, vol = phase_main_path()
+    timed_phase("3 host core", phase_host_core, trackers)
+    row = timed_phase("3 kernels", phase_group_kernel)
+    launches, model, vol = timed_phase("4 stack", phase_main_path)
     if args.profile:
         phase_breakdown(model, vol)
-    ortho_launches, consensus, ortho_vol = phase_orthoplane(model)
+    ortho_launches, consensus, ortho_vol = timed_phase(
+        "5 orthoplane", phase_orthoplane, model)
     if args.profile:
         phase_breakdown_orthoplane(model, ortho_vol)
         phase_consensus_at_density(trackers)
     del trackers
     with tempfile.TemporaryDirectory() as tmp:
-        phase_fill_store(consensus, ortho_vol.shape, tmp)
-        cli_launches = phase_command_line(model, ortho_vol, tmp)
+        timed_phase("6 fill", phase_fill_store, consensus, ortho_vol.shape,
+                    tmp)
+        cli_launches = timed_phase("7 command line", phase_command_line,
+                                   model, ortho_vol, tmp)
     del model, consensus
     # each main path's run had the counts set to 0 just before it and
     # read just after (launches_by_path); "launches" is their sum over the
@@ -2113,18 +2575,25 @@ def main():
         "orthoplane_by_axis": ortho_launches["per_axis"],
         "command_line": cli_launches}
     for mode in ("stack", "orthoplane"):
-        phase_content(mode)
+        timed_phase(f"8 content ({mode})", phase_content, mode)
     # the training path: the fit (2 epochs, validation after each), a
     # validation alone, and the finetuned descriptor's stack inference,
     # each with the counts set to 0 just before it; then the
     # Panoptic-DeepLab and boundary-contour families (the BC recipe
-    # trains on the training path's set)
+    # trains on the training path's set); then the artifacts (on the
+    # orthoplane volume) and curation (on the synthetic one)
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
-        row["launches_by_path"]["training"], dirs = phase_training(tmp)
-        vol, gt, pdl_launches = phase_pdl(tmp)
+        row["launches_by_path"]["training"], dirs = timed_phase(
+            "9 training", phase_training, tmp)
+        vol, gt, pdl_launches = timed_phase("10 Panoptic-DeepLab",
+                                            phase_pdl, tmp)
         row["launches_by_path"].update(pdl_launches)
-        phase_bc(vol, gt, dirs, tmp)
+        timed_phase("11 boundary-contour", phase_bc, vol, gt, dirs, tmp)
+        row["launches_by_path"].update(timed_phase(
+            "12 artifacts", phase_artifacts, ortho_vol, tmp))
+        timed_phase("13 curation", phase_curation, vol, gt, tmp)
+    print(f"chip_smoke: {time.time() - T_START:.1f} s in all")
 
     print("kernels: group_pixels")
     print(json.dumps({"kernels": [row]}))

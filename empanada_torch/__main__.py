@@ -9,6 +9,7 @@ COMMANDS = {
     "export": "empanada_torch.cli.export",
     "evaluate3d": "empanada_torch.cli.evaluate3d",
     "evaluate3d_bc": "empanada_torch.cli.evaluate3d_bc",
+    "curate": "empanada_torch.cli.curate",
 }
 
 

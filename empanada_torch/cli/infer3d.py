@@ -22,7 +22,7 @@ import time
 
 import numpy as np
 
-__all__ = ["main", "run_inference3d"]
+__all__ = ["main", "run_inference3d", "print_quantized_warning"]
 
 
 def _run_noexcept(fn, errors):
@@ -83,8 +83,9 @@ def parse_args(argv=None):
     parser.add_argument("--one-view", action="store_true")
     parser.add_argument("--fine-boundaries", action="store_true")
     parser.add_argument("--quantized", action="store_true",
-                        help="load the int8 artifact from the descriptor "
-                             "(not ported yet)")
+                        help="load the executing-int8 artifact from the "
+                             "descriptor (export --quantize with "
+                             "calibration; models/quantization.py)")
     parser.add_argument("--resident", action="store_true",
                         help="Device-resident volume path (one upload, "
                              "blocks sliced on device; not ported yet)")
@@ -274,12 +275,30 @@ def run_inference3d(
 def _refuse_unported(args):
     """Exit on the flags whose paths this package does not have yet."""
     for flag, on in (("-n-devices", args.n_devices != 0),
-                     ("--resident", args.resident),
-                     ("--quantized", args.quantized)):
+                     ("--resident", args.resident)):
         if on:
             raise SystemExit(
                 f"{flag}: not ported yet in empanada_torch (single-device "
-                "float32 streaming inference only)")
+                "streaming inference only)")
+
+
+def print_quantized_warning(desc):
+    """Accuracy note for ``--quantized``: the drift against float32 that
+    the export measured on its calibration data and recorded in the
+    descriptor (``export._measure_int8_drift``), and the scope."""
+    drift = desc.get("int8_drift")
+    scope = desc.get("quantize_scope", "all")
+    if drift:
+        print(f"WARNING: int8 artifact (scope={scope}) measured drift "
+              f"vs fp32 on its calibration data: semantic IoU "
+              f"{drift['sem_iou']}, center-count delta "
+              f"{drift['center_count_rel'] * 100:.1f}% "
+              f"({drift['batches']} batches); use the fp32 artifact if "
+              f"accuracy parity matters.")
+    else:
+        print("WARNING: int8 artifact has no measured drift record "
+              "(exported without calibration data); int8 inference can "
+              "silently lose instances vs fp32.")
 
 
 def main(argv=None):
@@ -293,7 +312,11 @@ def main(argv=None):
     from empanada_torch.inference import patterns
 
     device = "cpu" if args.use_cpu else None
-    model, desc = load_exported_model(args.config, device=device)
+    model, desc = load_exported_model(args.config,
+                                      quantized=args.quantized,
+                                      device=device)
+    if args.quantized:
+        print_quantized_warning(desc)
     path = args.volume_path
     if args.data_key and os.path.isdir(path):
         # reference supports comma-separated keys: use the first that

@@ -14,6 +14,9 @@ for the JAX package:
   clamped borders; uint8 in cv2's fixed point, weights in 1/2048); a few uint8 pixels may differ by one grey level;
 - ``resize_nearest``: cv2.resize INTER_NEAREST (source index
   floor(i * src / dst));
+- ``resize_area``: cv2.resize INTER_AREA when shrinking a float32 image:
+  block means for integer factors, cv2's fractional-area weights
+  otherwise, summed in float32 in cv2's order;
 - ``warp_affine``: cv2.warpAffine with a zero border: nearest in its
   fixed-point source coordinates (1/1024 pixel), bilinear in float32
   coordinates and weights (OpenCV 5's kernel), rounded for integer
@@ -49,6 +52,7 @@ __all__ = [
     "FactorPad",
     "resize_linear",
     "resize_nearest",
+    "resize_area",
     "rotation_matrix",
     "warp_affine",
     "resize_by_factor",
@@ -111,6 +115,69 @@ def resize_nearest(img, size):
     ys = np.minimum(np.floor(np.arange(oh) * (1.0 / (oh / h))), h - 1)
     xs = np.minimum(np.floor(np.arange(ow) * (1.0 / (ow / w))), w - 1)
     return img[ys.astype(np.int64)][:, xs.astype(np.int64)]
+
+
+def _area_tab(src, dst, scale):
+    """cv2's computeResizeAreaTab: (dst index, src index, float32 weight)
+    over the source cells each destination cell covers, in cv2's order."""
+    tab = []
+    for d in range(dst):
+        f1 = d * scale
+        f2 = f1 + scale
+        cell = min(scale, src - f1)
+        s2 = min(math.floor(f2), src - 1)
+        s1 = min(math.ceil(f1), s2)
+        if s1 - f1 > 1e-3:
+            tab.append((d, s1 - 1, np.float32((s1 - f1) / cell)))
+        tab.extend((d, s, np.float32(1.0 / cell)) for s in range(s1, s2))
+        if f2 - s2 > 1e-3:
+            tab.append((d, s2, np.float32(min(f2 - s2, 1.0, cell) / cell)))
+    return tab
+
+
+def _by_rank(tab):
+    """Split a tab into steps: step j holds the j-th entry of every
+    destination index, so per-index sums keep cv2's order."""
+    steps, seen = [], {}
+    for d, s, a in tab:
+        j = seen[d] = seen.get(d, -1) + 1
+        if j == len(steps):
+            steps.append(([], [], []))
+        for lst, v in zip(steps[j], (d, s, a)):
+            lst.append(v)
+    return [(np.array(d), np.array(s), np.array(a, np.float32))
+            for d, s, a in steps]
+
+
+def resize_area(img, size):
+    """cv2.resize(img, (w, h), interpolation=INTER_AREA) of a float32
+    (H, W) image to ``size`` = (h, w) no larger on either side."""
+    img = np.asarray(img, np.float32)
+    h, w = img.shape
+    oh, ow = size
+    sx, sy = 1.0 / (ow / w), 1.0 / (oh / h)
+    if sx < 1 or sy < 1:
+        raise ValueError(f"resize_area shrinks only: {(h, w)} -> {size}")
+    if sx == round(sx) and sy == round(sy):
+        # cv2's fast path: the block's sum (four at a time), times 1/area
+        ix, iy = int(round(sx)), int(round(sy))
+        blocks = img[:oh * iy, :ow * ix].reshape(oh, iy, ow, ix)
+        taps = blocks.transpose(1, 3, 0, 2).reshape(iy * ix, oh, ow)
+        total = np.zeros((oh, ow), np.float32)
+        k = 0
+        while k + 4 <= len(taps):
+            total += ((taps[k] + taps[k + 1]) + taps[k + 2]) + taps[k + 3]
+            k += 4
+        for k in range(k, len(taps)):
+            total += taps[k]
+        return total * np.float32(1.0 / (ix * iy))
+    rows = np.zeros((h, ow), np.float32)
+    for d, s, a in _by_rank(_area_tab(w, ow, sx)):
+        rows[:, d] += img[:, s] * a
+    out = np.zeros((oh, ow), np.float32)
+    for d, s, a in _by_rank(_area_tab(h, oh, sy)):
+        out[d] += a[:, None] * rows[s]
+    return out
 
 
 def rotation_matrix(center, angle, scale=1.0):

@@ -13,22 +13,9 @@ import math
 
 import numpy as np
 
+from empanada_torch.data.utils.transforms import resize_by_factor
 
 __all__ = ["VolumeDataset"]
-
-
-def resize_by_factor(image, scale_factor=1):
-    """Downscale an (H, W) image by a factor with OpenCV's bilinear
-    resize (the JAX package's transforms.resize_by_factor). OpenCV is
-    imported only when a factor other than 1 is asked for."""
-    if scale_factor == 1:
-        return image
-    import cv2
-
-    h, w = image.shape
-    dh = math.ceil(h / scale_factor)
-    dw = math.ceil(w / scale_factor)
-    return cv2.resize(image, (dw, dh), interpolation=cv2.INTER_LINEAR)
 
 
 def take_slice(array, idx, axis):

@@ -45,6 +45,13 @@ MODELS = {
     "PanopticDeepLabBC": PanopticDeepLabBC,
     "PanopticBiFPN": PanopticBiFPN,
     "PanopticBiFPNPR": PanopticBiFPNPR,
+    # the reference's quantizable trees carry these arch names; any model
+    # here quantizes through models.quantization, so they resolve to the
+    # same classes, as in the JAX registry
+    "QuantizablePanopticDeepLab": PanopticDeepLab,
+    "QuantizablePanopticDeepLabPR": PanopticDeepLabPR,
+    "QuantizablePanopticBiFPN": PanopticBiFPN,
+    "QuantizablePanopticBiFPNPR": PanopticBiFPNPR,
 }
 
 

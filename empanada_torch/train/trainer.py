@@ -22,8 +22,9 @@ The JAX package's ``Trainer`` in PyTorch, with the same recipe keys:
   channel only;
 - checkpoints hold model, optimizer, schedule, step and epoch.
 
-DDP and multi-process training wait for the multi-device slice;
-``encoder_pretraining`` (a CEM torch encoder checkpoint) is not ported.
+``TRAIN.encoder_pretraining`` loads a CEM torch encoder checkpoint
+(``train.torch_weights``) and takes its norms when it carries them.
+DDP and multi-process training wait for the multi-device slice.
 """
 
 from __future__ import annotations
@@ -165,10 +166,14 @@ class Trainer:
                 load_pretrained_state(tcfg["whole_pretraining"]))
             print(f"=> loaded whole pretraining {tcfg['whole_pretraining']}")
         elif tcfg.get("encoder_pretraining"):
-            raise NotImplementedError(
-                "TRAIN.encoder_pretraining (a CEM torch encoder checkpoint) "
-                "is not ported yet; use whole_pretraining with a port "
-                "checkpoint or an exported descriptor")
+            from empanada_torch.train.torch_weights import (
+                load_encoder_pretraining,
+            )
+
+            norms = load_encoder_pretraining(self.model,
+                                             tcfg["encoder_pretraining"])
+            if norms:
+                self.norms = norms
 
         named = list(self.model.named_parameters())
         mask = finetune_trainable_mask(named, self.finetune_layer)

@@ -136,22 +136,26 @@ def test_exports_of_both_packages_give_the_same_forward(exported):
 
 def test_refusals_of_the_loader_and_exporter(tmp_path, exported,
                                              tiny_variables):
-    with pytest.raises(ValueError, match="flax_to_torch"):
-        export.load_exported_model(exported[1], device="cpu")
-    with pytest.raises(NotImplementedError, match="int8"):
-        export.load_exported_model(exported[0], quantized=True, device="cpu")
+    """The StableHLO artifact is refused before any write; a descriptor
+    of another format, and an int8 load of a descriptor without the int8
+    artifact, are refused by name."""
     state = flax_to_torch(tiny_variables)
-    with pytest.raises(NotImplementedError, match="int8"):
-        export.export_model(state, MODEL_CONFIG, str(tmp_path), "q",
-                            quantize=True)
     with pytest.raises(NotImplementedError, match="StableHLO"):
         export.export_model(state, MODEL_CONFIG, str(tmp_path), "s",
                             stablehlo=True)
     assert list(tmp_path.iterdir()) == []  # refused before any write
+    with pytest.raises(ValueError, match="model_quantized"):
+        export.load_exported_model(exported[0], quantized=True, device="cpu")
+    desc = yaml.safe_load(open(exported[0]))
+    desc["format"] = "other"
+    with open(tmp_path / "other.yaml", "w") as f:
+        yaml.safe_dump(desc, f)
+    with pytest.raises(ValueError, match="format 'other'"):
+        export.load_exported_model(str(tmp_path / "other.yaml"),
+                                   device="cpu")
 
 
-@pytest.mark.parametrize("flags", [["-n-devices", "2"], ["--resident"],
-                                   ["--quantized"]])
+@pytest.mark.parametrize("flags", [["-n-devices", "2"], ["--resident"]])
 def test_main_refuses_unported_flags(tmp_path, flags):
     """Refused by name before any work: the files need not exist."""
     argv = [str(tmp_path / "none.yaml"), str(tmp_path / "none.npy"),
@@ -273,10 +277,10 @@ def test_dispatcher(monkeypatch, capsys, tmp_path):
 
     assert list(dispatcher.COMMANDS) == ["infer3d", "train", "finetune",
                                          "export", "evaluate3d",
-                                         "evaluate3d_bc"]
+                                         "evaluate3d_bc", "curate"]
     for argv, code in ((["empanada_torch"], 2),
                        (["empanada_torch", "--help"], 0),
-                       (["empanada_torch", "curate"], 2)):
+                       (["empanada_torch", "nosuch"], 2)):
         monkeypatch.setattr(sys, "argv", argv)
         with pytest.raises(SystemExit) as exc:
             dispatcher.main()

@@ -1,9 +1,9 @@
 """The port stands alone: empanada_torch and chip_smoke.py import nothing
-of JAX or the JAX package (and PyYAML only inside the functions that
-read or write a descriptor), importing them neither compiles nor loads
-the C++ host core (that happens at first use), entry points never fall
-back to the CPU on their own, and the CUDA kernel path is taken only for
-CUDA tensors."""
+of JAX or the JAX package, nor OpenCV nor msgpack (and PyYAML only
+inside the functions that read or write a descriptor), importing them
+neither compiles nor loads the C++ host core (that happens at first
+use), entry points never fall back to the CPU on their own, and the
+CUDA kernel path is taken only for CUDA tensors."""
 
 import pkgutil
 import re
@@ -55,6 +55,13 @@ EVAL_MODULES = ("empanada_torch.evaluation",
                 "empanada_torch.data.bc_dataset",
                 "empanada_torch.data.synthetic",
                 "empanada_torch.utils.profiling")
+# modules of the artifacts and curation slice
+ARTIFACT_MODULES = ("empanada_torch.train.torch_weights",
+                    "empanada_torch.utils.msgpack",
+                    "empanada_torch.ops.int8",
+                    "empanada_torch.models.quantization",
+                    "empanada_torch.data.curation",
+                    "empanada_torch.cli.curate")
 
 
 def _port_sources():
@@ -67,8 +74,8 @@ def test_every_module_imports_with_jax_blocked():
         empanada_torch.__path__, "empanada_torch.")]
     assert "empanada_torch.inference.fused" in names
     assert set(NEW_MODULES + HOST_CORE_MODULES + TRAIN_MODULES
-               + EVAL_MODULES) <= set(names)
-    blocked = BLOCKED + ("yaml", "cv2", "mlflow")
+               + EVAL_MODULES + ARTIFACT_MODULES) <= set(names)
+    blocked = BLOCKED + ("yaml", "cv2", "mlflow", "msgpack")
     code = (
         "import sys\n"
         f"for name in {blocked!r}:\n"
@@ -132,6 +139,44 @@ def test_sources_never_import_jax_or_the_jax_package():
     assert offenders == []
 
 
+def test_sources_never_import_cv2_or_msgpack():
+    """The card machine has neither: the port reproduces cv2's kernels
+    in numpy and decodes flax's msgpack itself."""
+    pattern = re.compile(r"^\s*(import|from)\s+(cv2|msgpack)\b"
+                         r"|__import__\(\s*['\"](cv2|msgpack)", re.M)
+    offenders = [str(p.relative_to(ROOT)) for p in _port_sources()
+                 if pattern.search(p.read_text())]
+    assert offenders == []
+
+
+def test_artifact_and_curation_entry_points_raise_without_cuda(
+        monkeypatch, tmp_path):
+    """Calibrated int8 export (``import_torch_model`` passes through it)
+    and the patch filter default to CUDA and raise without a card;
+    naming the CPU runs them there."""
+    from empanada_torch.data.curation import PatchQualityFilter
+    from empanada_torch.export import export_model
+    from empanada_torch.models import create_model
+
+    cfg = {"arch": "PanopticBiFPNPR", "encoder": "regnety_200mf",
+           "fpn_layers": 1, "num_classes": 1}
+    state = create_model(device="cpu", seed=0, **cfg).state_dict()
+    batch = [np.random.default_rng(0).normal(0, 1, (1, 1, 128, 128))
+             .astype(np.float32)]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        PatchQualityFilter("resnet18", imsize=32)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        export_model(state, cfg, str(tmp_path / "q"), "q", quantize=True,
+                     calibration_data=batch)
+    assert not (tmp_path / "q").exists()  # refused before any write
+    assert PatchQualityFilter("resnet18", imsize=32, device="cpu") \
+        .device == torch.device("cpu")
+    desc = export_model(state, cfg, str(tmp_path / "c"), "c", quantize=True,
+                        calibration_data=batch, device="cpu")
+    assert desc["quantize_scope"] == "encoder" and desc["act_scales"]
+
+
 def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
     from empanada_torch.cli.infer3d import main, run_inference3d
     from empanada_torch.export import load_exported_model
@@ -182,7 +227,7 @@ def test_dispatcher_lists_the_training_commands():
                           timeout=120)
     assert proc.returncode == 0
     commands = {"infer3d", "train", "finetune", "export", "evaluate3d",
-                "evaluate3d_bc"}
+                "evaluate3d_bc", "curate"}
     for command in commands:
         assert command in proc.stdout
     from empanada_torch.__main__ import COMMANDS

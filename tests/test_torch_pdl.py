@@ -234,7 +234,10 @@ def test_registry_serves_every_encoder_and_arch():
     assert len(ENCODERS) == 17
     assert sorted(MODELS) == ["PanopticBiFPN", "PanopticBiFPNPR",
                               "PanopticDeepLab", "PanopticDeepLabBC",
-                              "PanopticDeepLabPR"]
+                              "PanopticDeepLabPR", "QuantizablePanopticBiFPN",
+                              "QuantizablePanopticBiFPNPR",
+                              "QuantizablePanopticDeepLab",
+                              "QuantizablePanopticDeepLabPR"]
     for encoder in ENCODERS:
         for arch in ("PanopticDeepLab", "PanopticDeepLabPR",
                      "PanopticDeepLabBC"):

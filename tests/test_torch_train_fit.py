@@ -2,8 +2,8 @@
 for two epochs on a tiny on-disk set (finite losses, the JAX package's
 validation metric keys, checkpoint and resume with the optimizer state
 equal), pretrained weights from a checkpoint, and the train -> export
--> finetune -> infer3d chain of commands; the unported flags and cases
-are refused by name."""
+-> finetune -> infer3d chain of commands; the unported flags are
+refused by name."""
 
 import copy
 import os
@@ -194,19 +194,12 @@ def test_train_refuses_multiprocess_flags(argv, flag):
         train.main(argv)
 
 
-@pytest.mark.parametrize("flag", ["--stablehlo", "--quantize",
-                                  "--from-torch"])
+@pytest.mark.parametrize("flag", ["--stablehlo"])
 def test_export_refuses_unported_flags(flag):
     from empanada_torch.cli import export
 
     with pytest.raises(SystemExit, match=f"{flag}: not ported yet"):
         export.main(["c.yaml", "ckpt.pth", "out", flag])
-
-
-def test_encoder_pretraining_is_refused():
-    trainer = Trainer(_config(encoder_pretraining="cem.pth"), device="cpu")
-    with pytest.raises(NotImplementedError, match="encoder_pretraining"):
-        trainer.init_state(4)
 
 
 def test_whole_pretraining_loads_a_checkpoint(tmp_path):
@@ -219,3 +212,35 @@ def test_whole_pretraining_loads_a_checkpoint(tmp_path):
     for p, q in zip(first.model.parameters(), second.model.parameters()):
         assert torch.equal(p, q)
     assert second.start_epoch == 0
+
+
+def test_export_quantize_writes_the_int8_artifact(tmp_path, capsys):
+    """``export --quantize`` on a training checkpoint writes the float32
+    and the weight-only int8 artifacts; the int8 one loads dequantized."""
+    import yaml
+
+    from empanada_torch.cli import export
+    from empanada_torch.export import (
+        dequantize_state_int8,
+        load_exported_model,
+        quantize_state_int8,
+    )
+
+    trainer = Trainer(_config(), device="cpu", seed=2)
+    trainer.init_state(4)
+    trainer.save(str(tmp_path / "ckpt.pth"), 1)
+    with open(tmp_path / "recipe.yaml", "w") as f:
+        yaml.safe_dump(_config(), f)
+    export.main([str(tmp_path / "recipe.yaml"), str(tmp_path / "ckpt.pth"),
+                 str(tmp_path / "out"), "-name", "q", "--quantize"])
+    assert "model_quantized" in capsys.readouterr().out
+    with open(tmp_path / "out" / "q.yaml") as f:
+        desc = yaml.safe_load(f)
+    assert desc["model_quantized"] == str(tmp_path / "out" / "q.int8.pth")
+    assert "act_scales" not in desc
+    model, _ = load_exported_model(str(tmp_path / "out" / "q.yaml"),
+                                   quantized=True, device="cpu")
+    want = dequantize_state_int8(quantize_state_int8(
+        trainer.model.state_dict()))
+    for key, value in model.state_dict().items():
+        assert torch.equal(value, want[key]), key
