@@ -94,7 +94,26 @@ failure exits non-zero before the final line):
    on the card over 1024 patches of 224^2 (images/s; CUDA vs CPU scores
    on 32 patches, tolerance 1e-4); ``curate flipbooks``, ``split-stack``,
    ``merge-batch`` and ``group-dirs`` on the result, checking the trees
-   they write.
+   they write;
+14. multi-device, at the world of every visible card (1 where one card
+   is visible): (a) MitoNet at full width through
+   ``run_inference3d(mode="orthoplane", mesh=create_mesh(count))`` on the
+   orthoplane volume, its consensus equal to the same run without a
+   mesh, RLE for RLE (slices/s of both, K1 launches per axis and by
+   card); (b) K1 on every visible card at the main and xy shapes, ids
+   equal to the plain version's; (c) ``multihost_run_inference3d`` over
+   2 processes on one card (gloo), rank 0's consensus equal to one
+   process's ``run_inference3d`` at the same block (seconds of both,
+   each rank's blocks and copied bytes); (d) one float32 step of the
+   MitoNet recipe at full width (global batch 16 of 256², TF32 off) at
+   world 2 on one card (gloo) and at world ``device_count`` (NCCL), each
+   held against one process's step to the JAX package's data-parallel
+   tolerances, then bf16 images/s, peak memory and the collectives'
+   time in a profiled step per rank; (e) ``python -m empanada_torch
+   train`` on the recipe (batch 64 of 256², bf16) for one epoch over
+   every card: each rank's images/s, data-wait share and peak memory,
+   one checkpoint, written by rank 0. Its ranks run as ``python3
+   chip_smoke.py --worker <kind> ...``.
 
 Each phase prints its seconds. The line before the last is the kernel table (JSON); the last line is
 ``{"ok": true, "device": {...}}``.
@@ -157,7 +176,7 @@ def orthoplane_group_shapes():
     (median kernel 3), the center grid at a quarter of the slice."""
     from empanada_torch.inference.fused import FusedStackEngine
 
-    engine = SimpleNamespace(block_size=None, mid=1)
+    engine = SimpleNamespace(block_size=None, mid=1, mesh=None)
     shapes = {}
     for axis, name in enumerate(AXES):
         ph, pw = (-(-side // 128) * 128
@@ -2510,6 +2529,512 @@ def phase_curation(vol, gt, tmp):
           f"{len(tree)} files, confidences for {len(conf)} images")
 
 
+# ---------------------------------------------------------------------------
+# phase 14: multi-device (the mesh engine, K1 on every card, multi-process
+# inference, data-parallel training)
+# ---------------------------------------------------------------------------
+
+DDP_BATCH = 16
+DDP_SIDE = 256
+# the JAX package's data-parallel tolerances (__graft_entry__._dryrun_impl)
+DDP_TOL = {"loss_rel": 1e-5, "grad_rel_l2": 1e-4, "bn_abs": 1e-4,
+           "param_abs": 1e-3}
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_workers(kind, world, out, *extra, local_ranks=None, timeout=600):
+    """``world`` ranks of ``python3 chip_smoke.py --worker <kind> port
+    rank world out *extra``; waits for all, kills what is left, fails on
+    a non-zero exit. Returns the wall seconds and the NCCL transports
+    that the ranks' NCCL_DEBUG=INFO lines name ("via P2P/IPC", ...)."""
+    import os
+    import re
+
+    port = free_port()
+    procs = []
+    t0 = time.time()
+    for rank in range(world):
+        env = dict(os.environ, NCCL_DEBUG="INFO", LOCAL_RANK=str(
+            rank if local_ranks is None else local_ranks[rank]))
+        procs.append(subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--worker",
+             kind, str(port), str(rank), str(world), str(out),
+             *map(str, extra)],
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True))
+    transports, errs = set(), []
+    try:
+        for rank, proc in enumerate(procs):
+            stdout, stderr = proc.communicate(
+                timeout=max(timeout - (time.time() - t0), 1))
+            transports.update(re.findall(r" via (\S+)", stdout + stderr))
+            if proc.returncode != 0:
+                errs.append(f"rank {rank} exit {proc.returncode}: "
+                            f"{stderr[-2500:]}")
+    finally:
+        for proc in procs:
+            proc.kill()
+            proc.wait()
+    if errs:
+        fail(f"{kind} workers: " + "\n".join(errs))
+    return time.time() - t0, sorted(transports)
+
+
+def ddp_config():
+    """The MitoNet recipe at full width for the parity step: the global
+    batch of DDP_BATCH, float32 (the parity runs turn autocast off)."""
+    from empanada_torch.config import load_config
+
+    cfg = load_config(RECIPE)
+    cfg["TRAIN"]["batch_size"] = DDP_BATCH
+    return cfg
+
+
+def ddp_inputs():
+    """The seeded global batch (DDP_BATCH x DDP_SIDE^2) and PointRend
+    points of the parity step."""
+    import torch
+
+    batch = _batch_for_step(31, n=DDP_BATCH, side=DDP_SIDE)
+    coords = torch.from_numpy(np.random.default_rng(32).random(
+        (DDP_BATCH, ddp_config()["MODEL"]["train_num_points"], 2))
+        .astype(np.float32))
+    return batch, coords
+
+
+def step_record(trainer, aux):
+    """Loss, trainable gradients, parameters and BN statistics of a
+    trainer after its step, on the host."""
+    return {"loss": float(aux["total_loss"]),
+            "grads": {n: p.grad.detach().cpu() for n, p in
+                      trainer.model.named_parameters() if p.grad is not None},
+            "state": {k: v.detach().cpu() for k, v in
+                      trainer.model.state_dict().items()}}
+
+
+def compare_steps(got, want):
+    """The data-parallel tolerances between two steps: (numbers, ok)."""
+    import torch
+
+    names = sorted(want["grads"])
+    g = torch.cat([got["grads"][n].reshape(-1).double() for n in names])
+    w = torch.cat([want["grads"][n].reshape(-1).double() for n in names])
+    stats = [k for k in want["state"]
+             if k.endswith(("running_mean", "running_var"))]
+    params = [k for k in names]
+    nums = {
+        "loss_rel": abs(got["loss"] - want["loss"]) / abs(want["loss"]),
+        "grad_rel_l2": float((g - w).norm() / w.norm()),
+        "bn_abs": max(float((got["state"][k] - want["state"][k]).abs().max())
+                      for k in stats),
+        "param_abs": max(float((got["state"][k] - want["state"][k])
+                               .abs().max()) for k in params)}
+    ok = sorted(got["grads"]) == names and all(
+        nums[k] <= DDP_TOL[k] for k in DDP_TOL)
+    return nums, ok
+
+
+def worker_ddp(rank, world, out, backend, price):
+    """One rank of the data-parallel parity step (float32, TF32 off) on
+    its rows of the global batch, then timed bf16 steps and a profiled
+    one, an all-reduce's latency (2 KiB) and time at the gradients' size
+    (128 MiB); with ``price``, to price the collectives (measurements
+    only, not the trainer's semantics), the same bf16 steps with torch's
+    fused SyncBatchNorm, with the batch norm's all-reduces on a group of
+    their own, with batch norm over each rank's rows, then the rank's
+    step alone (no DDP, no collective). Rank 0 writes its step record,
+    every rank its numbers. World 1 is one process without a group."""
+    import pickle
+
+    import torch
+    import torch.distributed as dist
+
+    from empanada_torch.parallel import initialize_distributed
+    from empanada_torch.train import Trainer
+
+    initialize_distributed(f"127.0.0.1:{PORT}", world, rank,
+                           backend=backend)
+    batch, coords = ddp_inputs()
+    trainer = Trainer(ddp_config(), seed=0)
+    trainer.amp_dtype = None
+    trainer.init_state(5)
+    b = DDP_BATCH // world
+    rows = slice(rank * b, (rank + 1) * b)
+    mine = {k: v[rows] for k, v in batch.items()}
+    aux = trainer.train_step(mine, point_coords=coords[rows].to(
+        trainer.device))
+    if rank == 0:
+        torch.save(step_record(trainer, aux), Path(out) / "ddp_step.pt")
+
+    # bf16 steps on the same rows: images/s of the global batch, peak
+    # memory, and one step under the profiler (collectives' share)
+    trainer.amp_dtype = torch.bfloat16
+    for _ in range(2):
+        trainer.train_step(mine)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    if world > 1:
+        dist.barrier()
+    t0 = time.time()
+    steps = 5
+    for _ in range(steps):
+        trainer.train_step(mine)
+    torch.cuda.synchronize()
+    seconds = time.time() - t0
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t1 = time.time()
+        trainer.train_step(mine)
+        torch.cuda.synchronize()
+        step_s = time.time() - t1
+    coll_cpu = coll_dev = 0.0
+    for ev in prof.key_averages():
+        key = ev.key.lower()
+        if "nccl" in key:
+            coll_dev += device_us(ev) / 1e6
+        elif any(s in key for s in ("allreduce", "all_reduce", "allgather",
+                                    "all_gather", "gloo")):
+            coll_cpu += ev.self_cpu_time_total / 1e6
+    numbers = {"rank": rank, "images_s": steps * DDP_BATCH / seconds,
+               "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+               "step_s": step_s, "collective_device_s": coll_dev,
+               "collective_host_s": coll_cpu, "device": str(trainer.device)}
+    if world > 1:
+        def all_reduce_ms(numel, reps):
+            t = torch.ones(numel, device=trainer.device)
+            dist.all_reduce(t)
+            torch.cuda.synchronize()
+            t0 = time.time()
+            for _ in range(reps):
+                dist.all_reduce(t)
+            torch.cuda.synchronize()
+            return (time.time() - t0) / reps * 1e3
+
+        numbers["all_reduce_2kib_ms"] = all_reduce_ms(512, 50)
+        numbers["all_reduce_128mib_ms"] = all_reduce_ms(32 * 2 ** 20, 3)
+
+    if world > 1 and price:
+        from empanada_torch.models.blocks import set_sync_batchnorm
+
+        def step_ms():
+            trainer.train_step(mine)
+            torch.cuda.synchronize()
+            dist.barrier()
+            t0 = time.time()
+            for _ in range(steps):
+                trainer.train_step(mine)
+            torch.cuda.synchronize()
+            return (time.time() - t0) / steps * 1e3
+
+        # the global batch norm priced two other ways: torch's fused
+        # SyncBatchNorm kernels (fewer launches), and the per-layer
+        # all-reduces on a process group of their own (not queued behind
+        # DDP's gradient buckets)
+        numbers["fused_bn_step_ms"] = fused_sync_bn_step_ms(step_ms)
+        import torch.distributed.nn.functional as dfn
+
+        own = dist.new_group()
+        real = dfn.all_reduce
+        dfn.all_reduce = lambda t, **kw: real(t, group=own)
+        numbers["bn_group_step_ms"] = step_ms()
+        dfn.all_reduce = real
+        set_sync_batchnorm(trainer.model, 1)
+        numbers["local_bn_step_ms"] = step_ms()
+        trainer.ddp = trainer.criterion.global_batch = None
+        trainer.points = trainer.points.generator
+        numbers["alone_step_ms"] = step_ms()
+    with open(Path(out) / f"ddp_rank{rank}.pkl", "wb") as f:
+        pickle.dump(numbers, f)
+    if world > 1:
+        dist.destroy_process_group()
+
+
+def fused_sync_bn_step_ms(step_ms):
+    """step_ms() with FlaxBatchNorm2d's synchronized train mode through
+    torch's SyncBatchNorm autograd function (batch_norm_stats, one
+    all_gather, batch_norm_elemt; one all_reduce backward), the running
+    variance moved by the biased global variance as flax's."""
+    import torch
+    import torch.distributed as dist
+    from torch.nn.modules._functions import SyncBatchNorm
+
+    from empanada_torch.models.blocks import FlaxBatchNorm2d
+
+    def fused(self, x):
+        rm, rv = self.running_mean.clone(), self.running_var.clone()
+        y = SyncBatchNorm.apply(x, self.weight, self.bias, rm, rv, self.eps,
+                                self.momentum, dist.group.WORLD,
+                                self.sync_world)
+        n = x.numel() // x.shape[1] * self.sync_world
+        with torch.no_grad():
+            keep = 1.0 - self.momentum
+            new_term = rv - keep * self.running_var
+            self.running_mean.copy_(rm)
+            self.running_var.mul_(keep).add_(new_term, alpha=(n - 1) / n)
+            self.num_batches_tracked.add_(1)
+        return y
+
+    real = FlaxBatchNorm2d._sync_forward
+    FlaxBatchNorm2d._sync_forward = fused
+    try:
+        return step_ms()
+    finally:
+        FlaxBatchNorm2d._sync_forward = real
+
+
+def worker_multihost(rank, world, out):
+    """One rank of multihost_run_inference3d: full-width MitoNet on the
+    orthoplane volume, gloo for the objects; writes its seconds, its
+    stats, its K1 launches by card and (rank 0) the consensus."""
+    import pickle
+
+    import torch
+    import torch.distributed as dist
+
+    from empanada_torch.models import create_model
+    from empanada_torch.ops import group
+    from empanada_torch.parallel import initialize_distributed
+    from empanada_torch.parallel.multihost import multihost_run_inference3d
+
+    initialize_distributed(f"127.0.0.1:{PORT}", world, rank, backend="gloo")
+    cfg = dict(MITONET)
+    model = create_model(cfg.pop("arch"), seed=0, **cfg)
+    vol = em_like_volume(np.random.default_rng(4), *ORTHO_SHAPE, n_blobs=30)
+    kwargs = {k: v for k, v in inference_kwargs("orthoplane").items()
+              if k != "device"}
+    stats = {}
+    dist.barrier()
+    group.reset_launches()
+    t0 = time.time()
+    cons = multihost_run_inference3d(model, vol, block_size=8, stats=stats,
+                                     **kwargs)
+    torch.cuda.synchronize()
+    record = {"seconds": time.time() - t0, "stats": stats,
+              "launches_by_card": dict(group.LAUNCHES_BY_CARD),
+              "instances": None if cons is None else cons[1].instances}
+    with open(Path(out) / f"multihost_rank{rank}.pkl", "wb") as f:
+        pickle.dump(record, f)
+    dist.destroy_process_group()
+
+
+def phase_multi_device(ortho_vol, dirs, tmp, profile=False):
+    """(a) the mesh engine over every visible card against the run
+    without a mesh, (b) K1 on every card, (c) multihost_run_inference3d
+    over 2 processes on one card against one process, (d) the
+    data-parallel parity step at world 2 (one card, gloo) and at world
+    device_count (NCCL), (e) ``python -m empanada_torch train`` over
+    every card. ``profile`` adds worker_ddp's pricing of the collectives.
+    Returns K1 launches by path and card."""
+    import pickle
+
+    import torch
+
+    from empanada_torch.cli.infer3d import run_inference3d
+    from empanada_torch.models import create_model
+    from empanada_torch.ops import group
+    from empanada_torch.parallel import create_mesh
+
+    count = torch.cuda.device_count()
+    print(f"multi-device phase at world {count} ({count} visible card(s))")
+    cfg = dict(MITONET)
+    model = create_model(cfg.pop("arch"), device="cuda", seed=0, **cfg)
+    kwargs = inference_kwargs("orthoplane")
+    n_slices = sum(ortho_vol.shape)
+
+    # (a) the mesh engine: the same volume without and with the mesh,
+    # each timed after an untimed run of its own (the mesh's blocks and
+    # chunks are other shapes than any warm-up of the one-card path, and
+    # its other cards start cold)
+    mesh_kwargs = dict(kwargs, mesh=create_mesh(count))
+    for label, kw in (("no mesh", kwargs), (f"mesh of {count}", mesh_kwargs)):
+        t0 = time.time()
+        run_inference3d(model, ortho_vol, **dict(kw, progress=False))
+        torch.cuda.synchronize()
+        print(f"{label}: untimed orthoplane run {time.time() - t0:.3f} s")
+    plain, _, plain_s, _ = timed_orthoplane(model, ortho_vol, kwargs,
+                                            "no-mesh orthoplane")
+    meshed, _, mesh_s, mesh_launches = timed_orthoplane(
+        model, ortho_vol, mesh_kwargs, f"mesh-{count} orthoplane")
+    by_card = dict(group.LAUNCHES_BY_CARD)
+    print(f"mesh of {count} card(s): {n_slices / mesh_s:.2f} slices/s "
+          f"against {n_slices / plain_s:.2f} without a mesh, same call; "
+          f"K1 launches per axis {mesh_launches['per_axis']}, by card "
+          f"{by_card}")
+    if not same_instances(plain[1].instances, meshed[1].instances):
+        fail(f"mesh of {count}: the consensus differs from the run "
+             f"without a mesh")
+    print(f"mesh of {count}: consensus == the run without a mesh, RLE for "
+          f"RLE ({len(meshed[1].instances)} instances)")
+
+    # (b) K1 on every visible card
+    for index in range(count):
+        for shape in ("main", "xy"):
+            rng = np.random.default_rng(40 + index)
+            c, v, o = group_inputs(rng, shape, "em")
+            step = GROUP_SHAPES[shape][4]
+            dev = torch.device("cuda", index)
+            with torch.cuda.device(index):
+                got = group.group_pixels_batched(c.to(dev), v.to(dev),
+                                                 o.to(dev), step)
+            want = group.group_pixels_plain(c, v, o, step)
+            bad = int((got.cpu() != want.cpu()).sum())
+            print(f"K1 on cuda:{index} at the {shape} shape: ids on "
+                  f"{got.device}, {bad} differ from the plain version")
+            if bad or got.device != dev:
+                fail(f"K1 on cuda:{index} ({shape}): {bad} ids differ")
+
+    # (c) two processes on one card against one process (block 8 both)
+    t0 = time.time()
+    single = run_inference3d(model, ortho_vol, block_size=8,
+                             **dict(kwargs, progress=False))
+    torch.cuda.synchronize()
+    single_s = time.time() - t0
+    del model
+    torch.cuda.empty_cache()
+    wall, _ = run_workers("multihost", 2, tmp, local_ranks=[0, 0])
+    ranks = [pickle.load(open(tmp / f"multihost_rank{r}.pkl", "rb"))
+             for r in range(2)]
+    for r, rec in enumerate(ranks):
+        axes = {a: (s["slices"], s["dispatches"], s["d2h_bytes"])
+                for a, s in rec["stats"].items()}
+        print(f"multihost rank {r}: {rec['seconds']:.3f} s in the call; "
+              f"per axis (slices, dispatches, d2h_bytes) {axes}; K1 "
+              f"launches by card {rec['launches_by_card']}")
+        if not rec["launches_by_card"]:
+            fail(f"multihost rank {r} launched no grouping kernel")
+    print(f"multihost over 2 processes on one card: {wall:.3f} s wall "
+          f"(start-up and model build included), against "
+          f"{single_s:.3f} s for one process (block 8, same call)")
+    if not same_instances(single[1].instances, ranks[0]["instances"]):
+        fail("multihost: rank 0's consensus differs from one process's")
+    print(f"multihost: rank 0's consensus == one process's, RLE for RLE "
+          f"({len(single[1].instances)} instances)")
+
+    ddp_parity(tmp, profile)
+    train_command(dirs, tmp)
+    return {"mesh_orthoplane": mesh_launches["total"],
+            "mesh_orthoplane_by_axis": mesh_launches["per_axis"],
+            "mesh_orthoplane_by_card": by_card,
+            "multihost_by_rank_and_card": {
+                r: rec["launches_by_card"] for r, rec in enumerate(ranks)}}
+
+
+def ddp_parity(tmp, profile):
+    """Phase 14 (d): one process's f32 step, then the same global batch
+    at world 2 on one card (gloo) and at world device_count (NCCL), held
+    to DDP_TOL; each rank's bf16 numbers (with ``profile``, the step
+    beside other ways to run the collectives, see worker_ddp)."""
+    import pickle
+
+    import torch
+
+    from empanada_torch.train import Trainer
+
+    count = torch.cuda.device_count()
+    batch, coords = ddp_inputs()
+    trainer = Trainer(ddp_config(), device="cuda", seed=0)
+    trainer.amp_dtype = None
+    trainer.init_state(5)
+    want = step_record(trainer, trainer.train_step(
+        batch, point_coords=coords.cuda()))
+    del trainer
+    torch.cuda.empty_cache()
+    for world, backend in ((2, "gloo"), (count, "nccl")):
+        local = [0] * world if backend == "gloo" else list(range(world))
+        if world == 1:
+            backend = "one process, no group"
+        wall, transports = run_workers("ddp", world, tmp, backend,
+                                       int(profile), local_ranks=local)
+        got = torch.load(tmp / "ddp_step.pt", weights_only=False)
+        nums, ok = compare_steps(got, want)
+        print(f"DDP world {world} ({backend}, cards {sorted(set(local))}) "
+              f"vs one process, f32 step, global batch {DDP_BATCH} x "
+              f"{DDP_SIDE}², TF32 off: " + ", ".join(
+                  f"{k} {v:.2e} (tol {DDP_TOL[k]:.0e})"
+                  for k, v in nums.items()) + f"; {wall:.1f} s wall; NCCL "
+              f"transports {transports or 'none'}")
+        for r in range(world):
+            rec = pickle.load(open(tmp / f"ddp_rank{r}.pkl", "rb"))
+            print(f"DDP world {world} rank {r} on {rec['device']}: bf16 "
+                  f"{rec['images_s']:.2f} images/s (global batch "
+                  f"{DDP_BATCH}), peak {rec['peak_gib']:.3f} GiB; profiled "
+                  f"step {rec['step_s']:.4f} s, collectives "
+                  f"{rec['collective_device_s']:.4f} s on the device "
+                  f"(nccl kernels), {rec['collective_host_s']:.4f} s on the "
+                  f"host (gloo / c10d calls)" + (
+                      f"; all-reduce 2 KiB {rec['all_reduce_2kib_ms']:.4f} "
+                      f"ms, 128 MiB {rec['all_reduce_128mib_ms']:.3f} ms; "
+                      f"step {DDP_BATCH / rec['images_s'] * 1e3:.1f} ms"
+                      if world > 1 else "") + (
+                      f"; with torch's fused SyncBatchNorm kernels "
+                      f"{rec['fused_bn_step_ms']:.1f} ms, with the batch "
+                      f"norm's all-reduces on a group of their own "
+                      f"{rec['bn_group_step_ms']:.1f} ms, "
+                      f"with batch norm over the rank's rows "
+                      f"{rec['local_bn_step_ms']:.1f} ms, the rank's "
+                      f"{DDP_BATCH // world} rows alone without DDP "
+                      f"{rec['alone_step_ms']:.1f} ms"
+                      if "alone_step_ms" in rec else ""))
+        if not ok:
+            fail(f"DDP world {world} ({backend}): the step differs from "
+                 f"one process's beyond the tolerances {DDP_TOL}")
+
+
+def train_command(dirs, tmp):
+    """Phase 14 (e): ``python -m empanada_torch train`` on the recipe
+    over every visible card; one checkpoint, written by rank 0."""
+    import torch
+    import yaml
+
+    count = torch.cuda.device_count()
+    cfg = recipe_config(dirs, tmp, epochs=1)
+    cfg["TRAIN"].update(model_dir=str(tmp / "ddp_models"), logging=False,
+                        print_freq=1, run_name="ddp")
+    cfg["EVAL"]["epochs_per_eval"] = 0
+    path = tmp / "ddp_recipe.yaml"
+    with open(path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    seconds, stdout = run_command(["train", str(path)],
+                                  f"train over {count} card(s)")
+    summaries = [line for line in stdout.splitlines()
+                 if line.startswith("rank ")]
+    print("\n".join(summaries))
+    saved = sorted(p.name for p in (tmp / "ddp_models").iterdir())
+    if stdout.count("=> saved checkpoint") != 1 or saved != [
+            "ddp_checkpoint.pth", "ddp_checkpoint.pth.json"] \
+            or len(summaries) != count:
+        fail(f"train over {count} card(s): checkpoints {saved}, "
+             f"{stdout.count('=> saved checkpoint')} saved by the ranks")
+
+
+PORT = None
+
+
+def worker(argv):
+    """``--worker <kind> port rank world out [backend]``: one rank of a
+    multi-process check of phase 14, on its card."""
+    global PORT
+    from empanada_torch.device import set_parity_numerics
+
+    kind, PORT, rank, world, out = argv[:5]
+    set_parity_numerics()
+    if kind == "ddp":
+        worker_ddp(int(rank), int(world), out, argv[5], argv[6] == "1")
+    elif kind == "multihost":
+        worker_multihost(int(rank), int(world), out)
+    else:
+        fail(f"unknown worker {kind}")
+
+
 T_START = time.time()
 
 
@@ -2522,6 +3047,10 @@ def timed_phase(label, fn, *args):
 
 
 def main():
+    if sys.argv[1:2] == ["--worker"]:
+        sys.path.insert(0, str(Path(__file__).resolve().parent))
+        worker(sys.argv[2:])
+        return
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", action="store_true",
                         help="also break the main paths' time down "
@@ -2529,7 +3058,13 @@ def main():
                              "profiler trace, host half native and numpy; "
                              "orthoplane: engine, forward and host half "
                              "alone per axis, native and numpy; consensus "
-                             "at a product-like count, native and numpy)")
+                             "at a product-like count, native and numpy; "
+                             "DDP step: the collectives priced against "
+                             "other ways to run them)")
+    parser.add_argument("--multi-device-only", action="store_true",
+                        help="run the build, the kernel checks and phase "
+                             "14 (multi-device) alone, with the volume and "
+                             "the training set it needs")
     args = parser.parse_args()
 
     root = Path(__file__).resolve().parent
@@ -2546,6 +3081,20 @@ def main():
 
     set_parity_numerics()
     timed_phase("2 build", phase_build)
+    if args.multi_device_only:
+        row = timed_phase("3 kernels", phase_group_kernel)
+        with tempfile.TemporaryDirectory() as tmp:
+            tmp = Path(tmp)
+            dirs = write_training_set(tmp)
+            ortho_vol = em_like_volume(np.random.default_rng(4),
+                                       *ORTHO_SHAPE, n_blobs=30)
+            row["launches_by_path"] = timed_phase(
+                "14 multi-device", phase_multi_device, ortho_vol, dirs, tmp,
+                args.profile)
+        row["launches"] = row["launches_by_path"]["mesh_orthoplane"]
+        row["launches_is"] = "the mesh orthoplane path (phase 14 alone)"
+        finish(row)
+        return
     trackers = density_trackers()
     timed_phase("3 host core", phase_host_core, trackers)
     row = timed_phase("3 kernels", phase_group_kernel)
@@ -2593,8 +3142,17 @@ def main():
         row["launches_by_path"].update(timed_phase(
             "12 artifacts", phase_artifacts, ortho_vol, tmp))
         timed_phase("13 curation", phase_curation, vol, gt, tmp)
-    print(f"chip_smoke: {time.time() - T_START:.1f} s in all")
+        row["launches_by_path"].update(timed_phase(
+            "14 multi-device", phase_multi_device, ortho_vol, dirs, tmp,
+            args.profile))
+    finish(row)
 
+
+def finish(row):
+    """The run's seconds, the kernel table and the contract's last line."""
+    import torch
+
+    print(f"chip_smoke: {time.time() - T_START:.1f} s in all")
     print("kernels: group_pixels")
     print(json.dumps({"kernels": [row]}))
     print(json.dumps({"ok": True, "device": {

@@ -6,7 +6,11 @@ panoptic merge, run extraction, then host matching, tracking, cross-axis
 consensus and volume fill), the zarr-v2 store, the exported-model loader
 and the ``infer3d`` command line in PyTorch, and MitoNet training and
 finetuning (``train/``, the losses, metrics, data pipeline, 2D engines
-and the ``train`` / ``finetune`` / ``export`` commands), with the one TPU
+and the ``train`` / ``finetune`` / ``export`` commands), multi-device
+inference and data-parallel training (``parallel/``: a mesh of cards for
+the fused engine, z-sharded multi-process orthoplane inference,
+``DistributedDataParallel`` with the JAX package's global-batch step),
+with the one TPU
 kernel of the JAX package (nearest-center pixel grouping) replaced by a
 hand-written CUDA kernel (``csrc/group_pixels.cu``).
 

@@ -75,7 +75,8 @@ def parse_args(argv=None):
                              "chosen from the slice size)")
     parser.add_argument("-n-devices", type=int, dest="n_devices", default=0,
                         help="Shard slice blocks over N devices "
-                             "(0 = single device; not ported yet)")
+                             "(0 = single device; with --use-cpu, N CPU "
+                             "entries)")
     parser.add_argument("-pipeline-depth", type=int, dest="pipeline_depth",
                         default=8,
                         help="Device blocks kept in flight past the "
@@ -137,15 +138,17 @@ def run_inference3d(
     None). ``device``: CUDA unless named; raises without a card when
     none is named. The hot path is the fused blocked engine
     (inference/fused.py): one device dispatch per ``block_size`` slices.
-    ``mesh`` and ``resident`` raise NotImplementedError.
+    ``mesh`` (``parallel.create_mesh``) shards each block's forward over
+    its devices and runs the rest on its first device (``device`` is
+    then ignored). ``resident`` raises NotImplementedError.
     """
     from empanada_torch.data import VolumeDataset
     from empanada_torch.inference import patterns
     from empanada_torch.inference.fused import FusedStackEngine
 
-    if mesh is not None or resident:
+    if resident:
         raise NotImplementedError(
-            "the mesh and device-resident paths are not ported")
+            "the device-resident path is not ported")
 
     if isinstance(model, tuple):
         module, variables = model
@@ -187,6 +190,7 @@ def run_inference3d(
         device_norms=device_norms,
         pipeline_depth=pipeline_depth,
         device=device,
+        mesh=mesh,
     )
 
     finish_threads = []
@@ -273,13 +277,29 @@ def run_inference3d(
 
 
 def _refuse_unported(args):
-    """Exit on the flags whose paths this package does not have yet."""
-    for flag, on in (("-n-devices", args.n_devices != 0),
-                     ("--resident", args.resident)):
-        if on:
-            raise SystemExit(
-                f"{flag}: not ported yet in empanada_torch (single-device "
-                "streaming inference only)")
+    """Exit on the flags whose paths this package does not have."""
+    if args.resident:
+        raise SystemExit("--resident: not ported yet in empanada_torch "
+                         "(streaming inference only)")
+
+
+def _mesh(args):
+    """The -n-devices mesh (None for 0): the first N cards, or N CPU
+    entries with --use-cpu; a -block-size that does not divide over it
+    is refused here, before any work."""
+    if not args.n_devices:
+        return None
+    import torch
+
+    from empanada_torch.parallel import create_mesh
+
+    mesh = create_mesh(args.n_devices, devices=(
+        [torch.device("cpu")] * args.n_devices if args.use_cpu else None))
+    if args.block_size is not None and args.block_size % mesh.size:
+        raise SystemExit(f"-block-size {args.block_size} must divide over "
+                         f"the {mesh.size}-device mesh (-n-devices)")
+    print(f"slice blocks sharded over {mesh.size} devices")
+    return mesh
 
 
 def print_quantized_warning(desc):
@@ -306,6 +326,7 @@ def main(argv=None):
     assert math.log2(args.downsample_f).is_integer(), \
         "downsample factor must be a power of 2"
     _refuse_unported(args)
+    mesh = _mesh(args)
 
     from empanada_torch.data.zarr_store import create_zarr, read_volume
     from empanada_torch.export import load_exported_model
@@ -347,6 +368,7 @@ def main(argv=None):
         norms=desc.get("norms"),
         block_size=args.block_size,
         pipeline_depth=args.pipeline_depth,
+        mesh=mesh,
         save_panoptic_dir=(
             os.path.dirname(os.path.abspath(args.volume_path))
             if args.save_panoptic else None),

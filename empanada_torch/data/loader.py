@@ -11,6 +11,11 @@ and, for a CUDA consumer, pinned. Each epoch, worker i augments from
 the i-th of ``num_workers`` streams spawned from the transforms'
 ``SeedSequence``: with one worker that is the JAX loader's draw
 sequence, example for example.
+
+Data-parallel training cuts each global batch into rows by rank
+(``num_replicas``, ``rank``): rank r takes rows [r*b, (r+1)*b) of every
+global batch, b = batch_size / num_replicas, so the ranks together load
+exactly one process's batches, index for index.
 """
 
 from __future__ import annotations
@@ -39,12 +44,18 @@ def collate(examples):
 
 
 class EpochBatchSampler:
-    """The JAX loader's batches of one epoch (``set_epoch``)."""
+    """The JAX loader's batches of one epoch (``set_epoch``); with
+    ``num_replicas`` > 1, this rank's rows of each of them."""
 
     def __init__(self, dataset_len, batch_size, sampler=None, shuffle=False,
-                 drop_last=False, seed=0):
+                 drop_last=False, seed=0, num_replicas=1, rank=0):
+        if batch_size % num_replicas:
+            raise ValueError(f"batch of {batch_size} does not divide over "
+                             f"{num_replicas} ranks")
         self.dataset_len = dataset_len
         self.batch_size = batch_size
+        self.num_replicas = num_replicas
+        self.rank = rank
         self.sampler = sampler
         self.shuffle = shuffle
         self.drop_last = drop_last
@@ -73,10 +84,11 @@ class EpochBatchSampler:
 
     def __iter__(self):
         indices = self._indices()
+        per = self.batch_size // self.num_replicas
         for i in range(0, len(indices), self.batch_size):
             batch = indices[i:i + self.batch_size]
             if len(batch) == self.batch_size or not self.drop_last:
-                yield batch
+                yield batch[self.rank * per:(self.rank + 1) * per]
 
 
 def _init_worker(streams, worker_id):
@@ -88,14 +100,16 @@ def _init_worker(streams, worker_id):
 
 class DataLoader:
     """Epoch-seeded batches built by ``num_workers`` worker processes
-    (at least one), ``prefetch`` batches ahead per worker."""
+    (at least one), ``prefetch`` batches ahead per worker; this rank's
+    rows of them with ``num_replicas`` > 1 (``EpochBatchSampler``)."""
 
     def __init__(self, dataset, batch_size=1, sampler=None, shuffle=False,
                  drop_last=False, num_workers=4, prefetch=2, seed=0,
-                 pin_memory=False):
+                 pin_memory=False, num_replicas=1, rank=0):
         self.dataset = dataset
         self.batch_sampler = EpochBatchSampler(
-            len(dataset), batch_size, sampler, shuffle, drop_last, seed)
+            len(dataset), batch_size, sampler, shuffle, drop_last, seed,
+            num_replicas, rank)
         self.num_workers = max(1, num_workers)
         self.prefetch = prefetch
         self.pin_memory = pin_memory

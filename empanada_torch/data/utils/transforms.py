@@ -287,11 +287,12 @@ class Compose:
     of a loader draws from the i-th child spawned from
     ``SeedSequence(seed)`` (``set_stream``); used outside a loader, the
     first call spawns the next child, as the JAX package's per-thread
-    streams do."""
+    streams do. ``spawn_key`` roots the sequence at a child of the
+    seed's (a data-parallel rank's own streams)."""
 
-    def __init__(self, transforms, seed=None):
+    def __init__(self, transforms, seed=None, spawn_key=()):
         self.transforms = transforms
-        self.seed_seq = np.random.SeedSequence(seed)
+        self.seed_seq = np.random.SeedSequence(seed, spawn_key=spawn_key)
         self._rng = None
 
     def set_stream(self, seed_seq):
@@ -537,7 +538,7 @@ AUGMENTATIONS = {
 }
 
 
-def create_augmentations(aug_config, norms=None, seed=None):
+def create_augmentations(aug_config, norms=None, seed=None, spawn_key=()):
     """Config list [{'aug': name, **params}, ...] -> Compose, appending
     Normalize(norms) last."""
     transforms = []
@@ -549,4 +550,4 @@ def create_augmentations(aug_config, norms=None, seed=None):
         transforms.append(AUGMENTATIONS[name](**params))
     if norms is not None:
         transforms.append(Normalize(mean=norms["mean"], std=norms["std"]))
-    return Compose(transforms, seed=seed)
+    return Compose(transforms, seed=seed, spawn_key=spawn_key)

@@ -19,14 +19,20 @@ def set_parity_numerics():
 
 
 def resolve_device(device=None) -> torch.device:
-    """The device an entry point runs on: CUDA unless the caller names
-    another. With no device given and no card present this raises; it
-    never falls back to the CPU on its own."""
+    """The device an entry point runs on: the current card, by its index
+    (``cuda:N``, so that every tensor, pinned copy and stream names the
+    same card when a process or a replica owns one), unless the caller
+    names another ("cuda" alone also means the current card). With no
+    device given and no card present this raises;
+    it never falls back to the CPU on its own."""
     set_parity_numerics()
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError(
                 "CUDA is not available: pass device='cpu' explicitly to "
                 "run on the CPU")
-        return torch.device("cuda")
-    return torch.device(device)
+        return torch.device("cuda", torch.cuda.current_device())
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device

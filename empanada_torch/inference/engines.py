@@ -104,6 +104,33 @@ def _padded_infer(engine, image, upsampling):
     return engine.infer(image, int(2 + math.log2(upsampling)))
 
 
+def _instance_cells(ctr_hmp, offsets, *, nms_threshold, nms_kernel,
+                    max_centers, step, scale):
+    """Center NMS + pixel grouping on the (coarse) grid of a (1, 1, h, w)
+    heatmap and (1, 2, h, w) offsets, the ids nearest-upsampled by
+    ``scale``: (1, h * scale, w * scale) int32."""
+    centers, valid = find_instance_centers(
+        ctr_hmp[:, 0], nms_threshold, nms_kernel, max_centers)
+    ins = group_pixels(centers, valid, offsets.permute(0, 2, 3, 1),
+                       step=float(step))
+    if scale > 1:
+        ins = ins.repeat_interleave(scale, 1).repeat_interleave(scale, 2)
+    return ins
+
+
+def _merge_with_cells(sem_prob, instance_cells, table, *, label_divisor,
+                      stuff_area, void_label, confidence_thr, max_centers,
+                      num_classes):
+    """Harden (1, C, H, W) probabilities, keep the cells on thing pixels
+    and merge: (H, W) int32 panoptic ids."""
+    sem = harden_semantic(sem_prob, confidence_thr)
+    ins = torch.where(table[sem.long()], instance_cells,
+                      torch.zeros_like(instance_cells))
+    return merge_semantic_and_instance(
+        sem, ins, label_divisor, table, stuff_area, void_label,
+        max_centers, num_classes)[0]
+
+
 class _MedianQueue:
     """Sliding median window over the model outputs of consecutive
     slices, kept on the device."""
@@ -232,25 +259,19 @@ class PanopticDeepLabRenderEngine(PanopticDeepLabEngine):
         """Center NMS + grouping on the (coarse) grid, the ids upsampled
         by upsampling * step: (1, H, W) int32."""
         step = 4 if self.coarse_boundaries else 1
-        centers, valid = find_instance_centers(
-            ctr_hmp[:, 0], self.nms_threshold, self.nms_kernel,
-            self.max_centers)
-        ins = group_pixels(centers, valid, offsets.permute(0, 2, 3, 1),
-                           step=float(step))
-        scale = int(upsampling * step)
-        if scale > 1:
-            ins = ins.repeat_interleave(scale, 1).repeat_interleave(scale, 2)
-        return ins
+        return _instance_cells(
+            ctr_hmp, offsets, nms_threshold=self.nms_threshold,
+            nms_kernel=self.nms_kernel, max_centers=self.max_centers,
+            step=step, scale=int(upsampling * step))
 
     def get_panoptic_seg(self, sem_prob, instance_cells):
         num_classes = self.num_classes(sem_prob)
-        sem = harden_semantic(sem_prob, self.confidence_thr)
-        table = thing_table(self.thing_list, num_classes, sem.device)
-        ins = torch.where(table[sem.long()], instance_cells,
-                          torch.zeros_like(instance_cells))
-        return merge_semantic_and_instance(
-            sem, ins, self.label_divisor, table, self.stuff_area,
-            self.void_label, self.max_centers, num_classes)[0]
+        table = thing_table(self.thing_list, num_classes, sem_prob.device)
+        return _merge_with_cells(
+            sem_prob, instance_cells, table,
+            label_divisor=self.label_divisor, stuff_area=self.stuff_area,
+            void_label=self.void_label, confidence_thr=self.confidence_thr,
+            max_centers=self.max_centers, num_classes=num_classes)
 
     def _finalize(self, out, upsampling, size):
         cells = self.get_instance_cells(out["ctr_hmp"], out["offsets"],

@@ -14,6 +14,13 @@ Emission semantics match the JAX engine exactly: slice z gets the window
 median for mid <= z < n - mid and its raw map at the stack edges.
 Maps and run coordinates stay on the factor-padded grid; the header
 carries the true crop for the host rebase (rle.unpack_packed_runs).
+
+With ``mesh=`` (``parallel.create_mesh``) each block is split into
+``mesh.size`` contiguous chunks, each device runs its own replica of
+the model on its chunk (the launches are asynchronous, so one host
+thread keeps every card busy), and the maps are gathered onto the
+mesh's first device, where the median window, the postprocess, the
+grouping kernel and the run extraction run exactly as without a mesh.
 """
 
 from __future__ import annotations
@@ -38,6 +45,7 @@ from empanada_torch.ops.postprocess import (
 )
 from empanada_torch.ops.resize import factor_pad
 from empanada_torch.ops.rle_device import extract_fg_runs
+from empanada_torch.parallel.mesh import replicate, shard_batch
 
 __all__ = ["FusedStackEngine"]
 
@@ -91,7 +99,9 @@ class FusedStackEngine:
     ``device_norms=(mean, std)`` or {"mean", "std"}: normalize on the
     device, ((x/255 - mean)/std) with the factor-pad ring re-zeroed; feed
     RAW (e.g. uint8) slices. ``device``: CUDA unless named (raises
-    without a card when none is named).
+    without a card when none is named). ``mesh``: shard each block's
+    forward over the mesh's devices (``block_size`` must divide over
+    it); the engine then runs on the mesh's first device.
 
     ``infer_blocks(dataset)`` yields (z_indices, pan_block, packed) per
     block; ``packed`` converts with ``np.asarray`` to the (B, 1+R, 3)
@@ -104,12 +114,22 @@ class FusedStackEngine:
                  median_kernel_size=3, padding_factor=128,
                  coarse_boundaries=True, max_centers=256,
                  num_classes=None, max_runs=None, device_norms=None,
-                 pipeline_depth=2, device=None):
+                 pipeline_depth=2, device=None, mesh=None):
         assert median_kernel_size % 2 == 1
+        if mesh is not None:
+            if block_size is not None and block_size % mesh.size:
+                raise ValueError(
+                    f"block_size {block_size} must divide over the "
+                    f"{mesh.size}-device mesh")
+            device = mesh.devices[0]
         self.device = resolve_device(device)
         if variables:
             module.load_state_dict(variables)
+        self.mesh = mesh
         self.module = module.to(self.device).eval()
+        self.devices = mesh.devices if mesh is not None else (self.device,)
+        self.replicas = replicate(self.module, mesh) if mesh is not None \
+            else [self.module]
         self.thing_list = list(thing_list)
         self.block_size = block_size
         self.label_divisor = label_divisor
@@ -133,16 +153,18 @@ class FusedStackEngine:
 
     def _resolve_block(self, pad_shape, n):
         """Slices per block for this slice shape: the explicit setting
-        if given, else ~8 512^2-slices of pixels per block (rounded to a
-        multiple of 8, at most 64), clamped to the stack length."""
+        if given, else ~8 512^2-slices of pixels per device (rounded to
+        a multiple of 8 a device, at most 64 a device), clamped to the
+        stack length rounded up to a multiple of 8 and of the mesh."""
+        mf = self.mesh.size if self.mesh is not None else 1
         if self.block_size is not None:
             return self.block_size
         ph, pw = pad_shape
-        B = 8 * (512 * 512) / max(ph * pw, 1)
-        B = max(8, min(64, round(B / 8) * 8))
+        B = 8 * (512 * 512) * mf / max(ph * pw, 1)
+        B = max(8 * mf, min(64 * mf, round(B / (8 * mf)) * 8 * mf))
         need = n + self.mid
         if B > need:
-            B = min(B, -(-need // 8) * 8)
+            B = min(B, -(-(-(-need // 8) * 8) // mf) * mf)
         return B
 
     def _auto_max_runs(self, H, W):
@@ -172,6 +194,30 @@ class FusedStackEngine:
         ring = torch.zeros((ph, pw), dtype=torch.float32)
         ring[:min(ny, ph), :min(nx, pw)] = 1.0
         return ring.to(self.device)
+
+    def _forward(self, batch, render_steps, norms, pad_masks):
+        """(B, ph, pw) host batch -> probabilities (B, C, H, W), centers
+        (B, h4, w4) and offsets (B, h4, w4, 2) on the engine's device:
+        each replica runs its contiguous chunk on its own device, and the
+        chunks are gathered onto the first."""
+        chunks = shard_batch(batch, self.mesh) if self.mesh is not None \
+            else [batch.to(self.device, non_blocking=True)]
+        outs = []
+        for module, x, mask in zip(self.replicas, chunks, pad_masks):
+            x = x[:, None].float()
+            if norms is not None:
+                x = (x / 255.0 - norms[0]) / norms[1]
+                if mask is not None:
+                    x = x * mask
+            out = module(x, render_steps=render_steps,
+                         interpolate_ins=not self.coarse_boundaries)
+            outs.append((logits_to_prob(out["sem_logits"].float()),
+                         out["ctr_hmp"][:, 0].float(),
+                         out["offsets"].permute(0, 2, 3, 1).float()))
+        if len(outs) == 1:
+            return outs[0]
+        return tuple(torch.cat([o[k].to(self.device, non_blocking=True)
+                                for o in outs]) for k in range(3))
 
     def _postprocess(self, sem_prob, ctr, off, num_classes, upsampling,
                      max_runs, crop, table):
@@ -217,7 +263,7 @@ class FusedStackEngine:
                            pin_memory=True)
         host.copy_(packed, non_blocking=True)
         event = torch.cuda.Event()
-        event.record()
+        event.record(torch.cuda.current_stream(packed.device))
         return _HostPacked(host, event)
 
     # -----------------------------------------------------------------
@@ -248,6 +294,8 @@ class FusedStackEngine:
         norms = self._norms()
         pad_mask = (self._pad_mask(crop, (ph, pw), upsampling)
                     if norms is not None else None)
+        pad_masks = [None if pad_mask is None else pad_mask.to(d)
+                     for d in self.devices]
         table = thing_table(self.thing_list, num_classes, dev)
 
         n_sem_ch = getattr(self.module, "num_classes", 1)
@@ -301,16 +349,8 @@ class FusedStackEngine:
             for bi, block_start in enumerate(block_starts):
                 batch, use_median = load_futs.pop(bi).result()
                 ensure_loads(bi + 1 + prefetch)
-                x = batch.to(dev, non_blocking=True)[:, None].float()
-                if norms is not None:
-                    x = (x / 255.0 - norms[0]) / norms[1]
-                    if pad_mask is not None:
-                        x = x * pad_mask
-                out = self.module(x, render_steps=render_steps,
-                                  interpolate_ins=not self.coarse_boundaries)
-                sem = logits_to_prob(out["sem_logits"].float())
-                ctr = out["ctr_hmp"][:, 0].float()
-                off = out["offsets"].permute(0, 2, 3, 1).float()
+                sem, ctr, off = self._forward(batch, render_steps, norms,
+                                              pad_masks)
 
                 allsem = torch.cat([carry_sem, sem], dim=0)
                 allctr = torch.cat([carry_ctr, ctr], dim=0)

@@ -5,7 +5,9 @@ flax tree uses (``Conv_0``, ``BatchNorm_0``, ...), so a flax variable
 path maps to a state_dict key by joining the names with dots
 (``empanada_torch.weights.flax_to_torch``). Batch norm runs with flax's
 epsilon (1e-5); in train mode it updates its running statistics as
-flax's ``nn.BatchNorm`` does (``FlaxBatchNorm2d``).
+flax's ``nn.BatchNorm`` does (``FlaxBatchNorm2d``), over the local
+batch or, synchronized across data-parallel ranks
+(``set_sync_batchnorm``), over the global one.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ __all__ = [
     "Resize2d",
     "FlaxBatchNorm2d",
     "bn",
+    "set_sync_batchnorm",
 ]
 
 BN_EPS = 1e-5  # flax.linen.BatchNorm default
@@ -37,11 +40,22 @@ class FlaxBatchNorm2d(nn.BatchNorm2d):
     batch variance, as flax's ``nn.BatchNorm`` (momentum 0.9) updates
     ``batch_stats.var``; torch's own update uses the unbiased variance.
     Normalization (biased variance, eps 1e-5), the running mean, the
-    eval mode and the state-dict keys are torch's unchanged."""
+    eval mode and the state-dict keys are torch's unchanged.
+
+    ``sync_world`` > 1 (``set_sync_batchnorm``) normalizes in train mode
+    with the moments of the global batch of that many data-parallel
+    ranks, as flax's BN under the JAX package's mesh: the per-rank sums
+    of x and x^2 go through one autograd-aware all-reduce, the variance
+    is flax's E[x^2] - E[x]^2 (clipped at 0), and the running variance
+    moves by that biased global variance."""
+
+    sync_world = 1
 
     def forward(self, x):
         if not self.training:
             return super().forward(x)
+        if self.sync_world > 1:
+            return self._sync_forward(x)
         # torch moves a copy of the variance by 0.1 * var * n / (n - 1);
         # the stored one takes that new term rescaled to the biased
         # variance (autograd saves the copy, so this is no in-place
@@ -56,6 +70,36 @@ class FlaxBatchNorm2d(nn.BatchNorm2d):
             self.running_var.mul_(keep).add_(new_term, alpha=(n - 1) / n)
             self.num_batches_tracked.add_(1)
         return out
+
+    def _sync_forward(self, x):
+        from torch.distributed.nn.functional import all_reduce
+
+        c = x.shape[1]
+        xf = x.float()
+        n = xf.numel() // c * self.sync_world
+        moments = all_reduce(torch.cat([xf.sum((0, 2, 3)),
+                                        xf.square().sum((0, 2, 3))])) / n
+        mean, sq = moments[:c], moments[c:]
+        var = torch.clamp(sq - mean.square(), min=0.0)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        y = (xf - mean[None, :, None, None]) * mul[None, :, None, None] \
+            + self.bias[None, :, None, None]
+        with torch.no_grad():
+            keep = 1.0 - self.momentum
+            self.running_mean.mul_(keep).add_(mean, alpha=self.momentum)
+            self.running_var.mul_(keep).add_(var, alpha=self.momentum)
+            self.num_batches_tracked.add_(1)
+        return y.to(x.dtype)
+
+
+def set_sync_batchnorm(module, world=1):
+    """Every ``FlaxBatchNorm2d`` of ``module`` normalizes over the global
+    batch of the ``world`` ranks of the default process group in train
+    mode (world 1: its own batch, the default). Returns the module."""
+    for m in module.modules():
+        if isinstance(m, FlaxBatchNorm2d):
+            m.sync_world = int(world)
+    return module
 
 
 def bn(features):

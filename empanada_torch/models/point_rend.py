@@ -10,7 +10,9 @@ Train: importance-sample ``train_num_points`` points per image (random
 points, the most uncertain of an oversampled set plus uniform ones),
 drawn from an explicit ``torch.Generator``, and predict them with the
 same MLP. The caller may pass the coordinates instead (the parity tests
-feed the JAX package's draw).
+feed the JAX package's draw). Under data parallelism the generator is a
+``GlobalDraw``: every rank draws the global batch's random numbers and
+keeps its own rows, so the ranks train on the points one process would.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ from empanada_torch.ops.resize import interpolate_scale
 from empanada_torch.ops.sampling import point_sample, point_sample_full_grid
 
 __all__ = [
+    "GlobalDraw",
     "calculate_uncertainty",
     "topk_lower_index",
     "get_uncertain_point_coords_on_grid",
@@ -30,6 +33,24 @@ __all__ = [
     "StandardPointHead",
     "PointRendSemSegHead",
 ]
+
+
+class GlobalDraw:
+    """A ``torch.Generator`` seen by rank ``rank`` of ``world`` equal
+    shares of a global batch."""
+
+    def __init__(self, generator, world, rank):
+        self.generator, self.world, self.rank = generator, world, rank
+
+
+def _rand(n, rest, generator, device):
+    """(n, *rest) uniform draws; with a ``GlobalDraw``, this rank's rows
+    of the global batch's (n * world, *rest) draw."""
+    if isinstance(generator, GlobalDraw):
+        full = torch.rand((n * generator.world,) + rest,
+                          generator=generator.generator, device=device)
+        return full[generator.rank * n:(generator.rank + 1) * n]
+    return torch.rand((n,) + rest, generator=generator, device=device)
 
 
 def calculate_uncertainty(logits: torch.Tensor) -> torch.Tensor:
@@ -68,8 +89,7 @@ def get_uncertain_point_coords_with_randomness(
     dev = coarse_logits.device
     num_sampled = int(num_points * oversample_ratio)
     with torch.no_grad():
-        coords = torch.rand((n, num_sampled, 2), generator=generator,
-                            device=dev)
+        coords = _rand(n, (num_sampled, 2), generator, dev)
         point_logits = point_sample(coarse_logits.detach().float(), coords)
         if point_logits.shape[-1] == 1:
             uncertainty = -point_logits[..., 0].abs()
@@ -81,8 +101,8 @@ def get_uncertain_point_coords_with_randomness(
         picked = torch.gather(coords, 1, idx[..., None].expand(-1, -1, 2))
         num_random = num_points - num_uncertain
         if num_random > 0:
-            picked = torch.cat([picked, torch.rand(
-                (n, num_random, 2), generator=generator, device=dev)], 1)
+            picked = torch.cat(
+                [picked, _rand(n, (num_random, 2), generator, dev)], 1)
     return picked
 
 

@@ -23,10 +23,13 @@ import ctypes
 import torch
 
 __all__ = ["group_pixels_batched", "group_pixels_plain", "check_inputs",
-           "tile_stats", "LAUNCHES", "reset_launches", "SLAB_ELEMENTS"]
+           "tile_stats", "LAUNCHES", "LAUNCHES_BY_CARD", "reset_launches",
+           "SLAB_ELEMENTS"]
 
-# launches of the CUDA kernel since the last reset_launches()
+# launches of the CUDA kernel since the last reset_launches(), in all and
+# by card index
 LAUNCHES = {"group_pixels": 0}
+LAUNCHES_BY_CARD = {}
 
 # elements of one (B, H*W, chunk) distance slab of the plain version: the
 # JAX package's guard (ops/postprocess.py group_pixels), so a full-
@@ -39,6 +42,7 @@ _fn = None
 def reset_launches():
     for key in LAUNCHES:
         LAUNCHES[key] = 0
+    LAUNCHES_BY_CARD.clear()
 
 
 def group_pixels_plain(centers, valid, offsets, step: float = 1.0,
@@ -141,6 +145,7 @@ def _launch(centers, valid, offsets, step, stats=None):
         raise RuntimeError(f"group_pixels kernel launch failed: CUDA error "
                            f"{rc}")
     LAUNCHES["group_pixels"] += 1
+    LAUNCHES_BY_CARD[dev.index] = LAUNCHES_BY_CARD.get(dev.index, 0) + 1
     return out
 
 

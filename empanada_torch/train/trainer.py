@@ -1,5 +1,6 @@
-"""Config-driven trainer: training and finetuning on one device (the
-MitoNet recipe, the Panoptic-DeepLab and boundary-contour recipes).
+"""Config-driven trainer: training and finetuning (the MitoNet recipe,
+the Panoptic-DeepLab and boundary-contour recipes) on one device, or
+data-parallel over the ranks of a ``torch.distributed`` process group.
 
 The JAX package's ``Trainer`` in PyTorch, with the same recipe keys:
 
@@ -24,7 +25,26 @@ The JAX package's ``Trainer`` in PyTorch, with the same recipe keys:
 
 ``TRAIN.encoder_pretraining`` loads a CEM torch encoder checkpoint
 (``train.torch_weights``) and takes its norms when it carries them.
-DDP and multi-process training wait for the multi-device slice.
+
+Data parallelism (a process group of world size N > 1 is up, one rank
+per card, see ``parallel.initialize_distributed``) keeps the JAX
+package's mesh semantics, so a step at world N equals one process's step
+on the same global batch:
+
+- ``TRAIN.batch_size`` is the GLOBAL batch; each rank loads rows
+  [r*b, (r+1)*b) of every global batch, b = batch_size / N, so the
+  ranks of one host load one process's batches index for index; across
+  hosts (``LOCAL_WORLD_SIZE`` < N) with dataset weights, each host draws
+  its own batch through ``DistributedWeightedSampler``, as the JAX
+  package's processes do, and its ranks take rows of it;
+- each rank augments from its own streams (child r of the seed's
+  ``SeedSequence``), so no two ranks repeat a draw;
+- the model runs under ``DistributedDataParallel`` with batch norm over
+  the global batch (``set_sync_batchnorm``), the loss over the global
+  batch (``losses.GlobalBatch``) and the PointRend points drawn for the
+  global batch (``GlobalDraw``);
+- validation, checkpoints and the logger run on rank 0 while the others
+  wait at a barrier.
 """
 
 from __future__ import annotations
@@ -39,10 +59,16 @@ import torch
 from empanada_torch import losses as losses_mod
 from empanada_torch import metrics as metrics_mod
 from empanada_torch.data import DataLoader, create_dataset
-from empanada_torch.data.utils.sampler import WeightedRandomSampler
+from empanada_torch.data.utils.sampler import (
+    DistributedWeightedSampler,
+    WeightedRandomSampler,
+)
 from empanada_torch.data.utils.transforms import create_augmentations
 from empanada_torch.device import resolve_device
 from empanada_torch.models import create_model
+from empanada_torch.models.blocks import set_sync_batchnorm
+from empanada_torch.models.point_rend import GlobalDraw
+from empanada_torch.parallel.mesh import world
 from empanada_torch.train.checkpoint import restore_state, save_checkpoint
 from empanada_torch.train.optim import (
     clip_by_global_norm_,
@@ -94,14 +120,16 @@ def load_pretrained_state(path):
 
 class Trainer:
     """Builds everything from a recipe dict and runs the epoch loop.
-    ``device``: CUDA unless named (raises without a card when none is
-    named). ``seed`` seeds the init, the loader's order and
-    augmentations, and the PointRend points."""
+    ``device``: this process's card unless named (raises without a card
+    when none is named). ``seed`` seeds the init, the loader's order and
+    augmentations, and the PointRend points. Data-parallel when a process
+    group of more than one rank is up (see the module's docstring)."""
 
     def __init__(self, config, device=None, seed=0):
         self.config = config
         self.device = resolve_device(device)
         self.seed = seed
+        self.world, self.rank = world()
 
         mcfg = dict(config["MODEL"])
         self.arch = mcfg.pop("arch")
@@ -117,8 +145,16 @@ class Trainer:
             **tcfg.get("criterion_params", {}))
         self.norms = config["DATASET"].get("norms", {"mean": 0.5, "std": 0.29})
         self.batch_size = tcfg.get("batch_size", 8)
+        if self.batch_size % self.world:
+            raise ValueError(f"TRAIN.batch_size {self.batch_size} does not "
+                             f"divide over {self.world} ranks")
         self.finetune_layer = tcfg.get("finetune_layer", "all")
         self.points = torch.Generator(self.device).manual_seed(seed + 1)
+        self.ddp = None
+        if self.world > 1:
+            self.points = GlobalDraw(self.points, self.world, self.rank)
+            set_sync_batchnorm(self.model, self.world)
+            self.criterion.global_batch = losses_mod.GlobalBatch()
         self.optimizer = None
         self.start_epoch = 0
         self.step = 0
@@ -138,22 +174,43 @@ class Trainer:
 
     def build_loader(self):
         tcfg = self.config["TRAIN"]
+        # each rank augments from streams of its own: child `rank` of the
+        # seed's sequence (one process keeps the sequence itself)
         augs = create_augmentations(
-            tcfg.get("augmentations", []), norms=self.norms, seed=self.seed)
+            tcfg.get("augmentations", []), norms=self.norms, seed=self.seed,
+            spawn_key=(self.rank,) if self.world > 1 else ())
         name, params = self._dataset_params(self.config["DATASET"], tcfg)
         dataset = create_dataset(name, tcfg["train_dir"], transforms=augs,
                                  **params)
         for extra_dir in tcfg.get("additional_train_dirs") or []:
             dataset = dataset + create_dataset(
                 name, extra_dir, transforms=augs, **params)
+        # LOCAL_WORLD_SIZE: the ranks a host, as torch's launchers and the
+        # train command set it (one host by default)
+        local = int(os.environ.get("LOCAL_WORLD_SIZE", self.world)) \
+            if self.world > 1 else 1
+        if self.world % local:
+            raise ValueError(f"LOCAL_WORLD_SIZE {local} does not divide the "
+                             f"world of {self.world} ranks")
+        hosts = self.world // local
         sampler = None
-        if dataset.weights is not None:
+        batch, replicas = self.batch_size, (self.world, self.rank)
+        if dataset.weights is not None and hosts > 1:
+            # across hosts, as the JAX package's processes: each host draws
+            # its own batch, its ranks take rows of it
+            sampler = DistributedWeightedSampler(
+                len(dataset), dataset.weights, num_replicas=hosts,
+                rank=self.rank // local, seed=self.seed)
+            batch, replicas = self.batch_size // hosts, \
+                (local, self.rank % local)
+        elif dataset.weights is not None:
             sampler = WeightedRandomSampler(dataset.weights, seed=self.seed)
         return DataLoader(
-            dataset, batch_size=self.batch_size, sampler=sampler,
+            dataset, batch_size=batch, sampler=sampler,
             shuffle=sampler is None, drop_last=True,
             num_workers=tcfg.get("workers", 4), seed=self.seed,
-            pin_memory=self.device.type == "cuda")
+            pin_memory=self.device.type == "cuda", num_replicas=replicas[0],
+            rank=replicas[1])
 
     # --- state ------------------------------------------------------
 
@@ -200,6 +257,12 @@ class Trainer:
             self.resume_run_id = meta.get("run_id")
             print(f"=> resumed from {tcfg['resume']} at epoch "
                   f"{self.start_epoch}")
+        if self.world > 1:
+            # after the freeze: DDP reduces the trainable parameters only
+            self.ddp = torch.nn.parallel.DistributedDataParallel(
+                self.model, broadcast_buffers=False,
+                device_ids=[self.device.index]
+                if self.device.type == "cuda" else None)
 
     # --- steps ------------------------------------------------------
 
@@ -225,14 +288,15 @@ class Trainer:
         return out
 
     def train_step(self, batch, point_coords=None):
-        """One optimizer step on a collated batch; returns the loss parts
-        and the batch's semantic IoU as device tensors (no host sync).
-        ``point_coords`` (N, P, 2) replaces the PointRend draw."""
+        """One optimizer step on a collated batch (this rank's rows of
+        the global batch); returns the loss parts and the global batch's
+        semantic IoU as device tensors (no host sync). ``point_coords``
+        (N, P, 2), this rank's rows, replaces the PointRend draw."""
         self.model.train()
         b = self.to_device(batch)
         with self.autocast():
-            out = self.model(b["image"], point_coords=point_coords,
-                             generator=self.points)
+            out = (self.ddp or self.model)(
+                b["image"], point_coords=point_coords, generator=self.points)
             total, aux = self.criterion(out, b)
         self.optimizer.zero_grad(set_to_none=True)
         total.backward()
@@ -247,8 +311,12 @@ class Trainer:
             pred = logits.argmax(1) > 0 if logits.shape[1] > 1 \
                 else logits[:, 0] > 0
             tgt = b["sem"] > 0
-            inter = (pred & tgt).sum()
-            union = pred.sum() + tgt.sum() - inter
+            counts = torch.stack([(pred & tgt).sum(), pred.sum(), tgt.sum()])
+            gb = self.criterion.global_batch
+            if gb is not None:
+                counts = gb.sum(counts)
+            inter, n_pred, n_tgt = counts
+            union = n_pred + n_tgt - inter
             aux["sem_iou"] = (inter + 1e-5) / (union + 1e-5)
         return {k: v.detach() for k, v in aux.items()}
 
@@ -350,8 +418,8 @@ class Trainer:
             on_step=None):
         """Train from ``start_epoch`` to ``epochs`` (default: the
         schedule's), validating every EVAL.epochs_per_eval epochs and
-        saving every TRAIN.save_freq. ``on_step(trainer, aux)`` runs
-        after each step. Returns one dict of the last step's aux per
+        saving every TRAIN.save_freq (on rank 0; the other ranks wait).
+        ``on_step(trainer, aux)`` runs after each step. Returns one dict of the last step's aux per
         epoch; ``self.timeline`` gets one {epoch, step, data_wait, end}
         per step (host clock)."""
         tcfg = self.config["TRAIN"]
@@ -396,11 +464,14 @@ class Trainer:
             history.append(epoch_metrics)
             if logger is not None:
                 logger.log_metrics(epoch_metrics, step=epoch)
-            if epochs_per_eval and (epoch + 1) % epochs_per_eval == 0:
+            if self.rank == 0 and epochs_per_eval \
+                    and (epoch + 1) % epochs_per_eval == 0:
                 self.validate(logger=logger, epoch=epoch)
-            if (epoch + 1) % save_freq == 0:
+            if self.rank == 0 and (epoch + 1) % save_freq == 0:
                 self.save(self.checkpoint_path(), epoch + 1,
                           run_id=getattr(logger, "run_id", None))
+            if self.world > 1:
+                torch.distributed.barrier()
         return history
 
     def checkpoint_path(self):

@@ -287,13 +287,18 @@ def test_png_codec_round_trip_and_fallback_reader(tmp_path, monkeypatch):
 
 
 def test_unported_data_cases_raise():
-    """The distributed samplers wait for the multi-device slice; the
-    boundary-contour dataset and target are ported (their parity is in
-    test_torch_bc.py)."""
+    """Nothing of the data package is left unported: the boundary-contour
+    dataset and target (their parity is in test_torch_bc.py) and the
+    distributed samplers, which with no process group up draw as one
+    process of rank 0, the JAX package's indices (more cases in
+    test_torch_parallel.py)."""
     from empanada_torch.data import DATASETS, BCDataset
 
     assert DATASETS["BCDataset"] is BCDataset
     contour = ttc.seg_to_instance_bd(np.zeros((1, 4, 4)))
     assert contour.dtype == np.uint8 and not contour.any()
-    with pytest.raises(NotImplementedError, match="parallel"):
-        t_sampler.DistributedWeightedSampler(4, np.ones(4))
+    ours = t_sampler.DistributedWeightedSampler(4, np.ones(4))
+    theirs = j_sampler.DistributedWeightedSampler(4, np.ones(4),
+                                                  num_replicas=1, rank=0)
+    assert (ours.num_replicas, ours.rank) == (1, 0)
+    assert list(ours) == list(theirs)

@@ -155,12 +155,18 @@ def test_refusals_of_the_loader_and_exporter(tmp_path, exported,
                                    device="cpu")
 
 
-@pytest.mark.parametrize("flags", [["-n-devices", "2"], ["--resident"]])
+@pytest.mark.parametrize("flags", [["-n-devices", "2", "-block-size", "3"],
+                                   ["--resident"]])
 def test_main_refuses_unported_flags(tmp_path, flags):
-    """Refused by name before any work: the files need not exist."""
+    """Refused by name before any work: the files need not exist.
+    ``--resident`` is not ported; ``-n-devices`` is, and refuses a block
+    that does not divide over its mesh (as the JAX engine does)."""
     argv = [str(tmp_path / "none.yaml"), str(tmp_path / "none.npy"),
             "--use-cpu"] + flags
-    with pytest.raises(SystemExit, match=f"{flags[0]}: not ported yet"):
+    match = {"-n-devices": "-block-size 3 must divide over the 2-device "
+                           "mesh",
+             "--resident": "--resident: not ported yet"}[flags[0]]
+    with pytest.raises(SystemExit, match=match):
         infer3d.main(argv)
 
 

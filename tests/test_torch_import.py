@@ -64,6 +64,14 @@ ARTIFACT_MODULES = ("empanada_torch.train.torch_weights",
                     "empanada_torch.cli.curate")
 
 
+# modules of the multi-device slice
+PARALLEL_MODULES = ("empanada_torch.parallel",
+                    "empanada_torch.parallel.mesh",
+                    "empanada_torch.parallel.collectives",
+                    "empanada_torch.parallel.inference",
+                    "empanada_torch.parallel.multihost")
+
+
 def _port_sources():
     return sorted((ROOT / "empanada_torch").rglob("*.py")) + [
         ROOT / "chip_smoke.py"]
@@ -74,7 +82,8 @@ def test_every_module_imports_with_jax_blocked():
         empanada_torch.__path__, "empanada_torch.")]
     assert "empanada_torch.inference.fused" in names
     assert set(NEW_MODULES + HOST_CORE_MODULES + TRAIN_MODULES
-               + EVAL_MODULES + ARTIFACT_MODULES) <= set(names)
+               + EVAL_MODULES + ARTIFACT_MODULES
+               + PARALLEL_MODULES) <= set(names)
     blocked = BLOCKED + ("yaml", "cv2", "mlflow", "msgpack")
     code = (
         "import sys\n"
@@ -92,6 +101,23 @@ def test_every_module_imports_with_jax_blocked():
         "assert parse_args(['m.yaml', 'v.zarr']).mode == 'orthoplane'\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                           capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_parallel_imports_nothing_of_jax():
+    """The multi-device modules, and everything they reach, import no
+    jax, flax, optax or empanada_tpu (nothing is blocked here: the check
+    is what a plain import loads)."""
+    code = (
+        "import sys, importlib\n"
+        f"for name in {list(PARALLEL_MODULES)!r}:\n"
+        "    importlib.import_module(name)\n"
+        "from empanada_torch.parallel.multihost import "
+        "multihost_run_inference3d\n"
+        f"bad = [m for m in sys.modules if m.split('.')[0] in {BLOCKED!r}]\n"
+        "assert not bad, bad\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
 
 
@@ -215,6 +241,10 @@ def test_training_entry_points_raise_without_cuda(monkeypatch):
         Trainer(config)
     with pytest.raises(RuntimeError, match="CUDA"):
         create_engine("PanopticDeepLabEngine", None, thing_list=[1])
+    from empanada_torch.parallel import create_mesh
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        create_mesh()
     assert Trainer(config, device="cpu").device == torch.device("cpu")
     engine = create_engine("PanopticDeepLabRenderEngine", None,
                            thing_list=[1], device="cpu")
@@ -283,12 +313,24 @@ def test_png_codec_reads_where_no_image_library_imports(tmp_path):
     assert proc.returncode == 0, proc.stderr
 
 
-@pytest.mark.parametrize("kwargs", [{"mesh": object()}, {"resident": True}])
+@pytest.mark.parametrize("kwargs", [
+    {"mesh": [torch.device("cpu")] * 2, "block_size": 3},
+    {"resident": True}])
 def test_mesh_and_resident_are_refused_by_name(kwargs):
+    """The device-resident path is refused by name; a mesh runs, and
+    refuses a block that does not divide over it, as the JAX engine
+    does."""
     from empanada_torch.cli.infer3d import run_inference3d
+    from empanada_torch.parallel import create_mesh
     from empanada_torch.synthetic import SyntheticModule
 
-    with pytest.raises(NotImplementedError, match="mesh and device-resident"):
+    kwargs = dict(kwargs)
+    if "mesh" in kwargs:
+        kwargs["mesh"] = create_mesh(devices=kwargs["mesh"])
+        error, match = ValueError, "must divide over the 2-device mesh"
+    else:
+        error, match = NotImplementedError, "device-resident"
+    with pytest.raises(error, match=match):
         run_inference3d(SyntheticModule(), np.zeros((4, 16, 16), np.float32),
                         labels=[1], thing_list=[1], device="cpu", **kwargs)
 
@@ -330,6 +372,34 @@ def test_group_kernel_matches_plain_on_card():
         want = group.group_pixels_plain(c, v, o, step)
         got = group.group_pixels_batched(c.cuda(), v.cuda(), o.cuda(), step)
         torch.testing.assert_close(got.cpu(), want, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_resolve_device_names_the_card_the_kernel_launches_on():
+    """With no device named, resolve_device gives the current card by
+    its index; a tensor made there and the grouping kernel's launch land
+    on that card, on every visible card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from empanada_torch.device import resolve_device
+
+    rng = np.random.default_rng(1)
+    c = torch.from_numpy(rng.integers(0, 32, (2, 16, 2)).astype(np.int32))
+    v = torch.ones((2, 16), dtype=torch.bool)
+    o = torch.from_numpy(rng.normal(0, 4, (2, 32, 32, 2)).astype(np.float32))
+    want = group.group_pixels_plain(c, v, o, 4.0)
+    for index in range(torch.cuda.device_count()):
+        with torch.cuda.device(index):
+            dev = resolve_device()
+            assert dev == torch.device("cuda", index)
+            assert resolve_device("cuda") == dev
+            x = torch.zeros(1, device=dev)
+            group.reset_launches()
+            got = group.group_pixels_batched(c.to(dev), v.to(dev),
+                                             o.to(dev), 4.0)
+            assert got.device == x.device == dev
+            assert group.LAUNCHES_BY_CARD == {index: 1}
+            torch.testing.assert_close(got.cpu(), want, rtol=0, atol=0)
 
 
 @pytest.mark.cuda

@@ -188,10 +188,29 @@ def test_commands_train_export_finetune_infer(tmp_path):
     (["c.yaml", "--num-processes", "2"], "--num-processes"),
     (["c.yaml", "--process-id", "0"], "--process-id")])
 def test_train_refuses_multiprocess_flags(argv, flag):
+    """The multi-process flags keep the JAX command's meaning (hosts):
+    ``--coordinator`` is the rendezvous of every worker; one host with
+    ``--process-id 0`` starts a worker per card with a local rendezvous;
+    ``--num-processes`` > 1 without a coordinator is refused, as
+    ``jax.distributed.initialize`` refuses it."""
     from empanada_torch.cli import train
 
-    with pytest.raises(SystemExit, match=f"{flag}: not ported yet"):
-        train.main(argv)
+    args = train.parse_args(argv)
+    if flag == "--num-processes":
+        with pytest.raises(SystemExit, match="needs --coordinator"):
+            train.plan_workers(args, n_cards=2)
+        return
+    plan = train.plan_workers(args, n_cards=4)
+    assert plan["world"] == 4 and plan["ranks"] == [0, 1, 2, 3]
+    assert plan["backend"] == "nccl" and plan["device"] is None
+    if flag == "--coordinator":
+        assert plan["coordinator"] == "h:1"
+    else:
+        assert plan["coordinator"].startswith("127.0.0.1:")
+    hosts = train.plan_workers(train.parse_args(
+        argv + ["--num-processes", "3", "--process-id", "2",
+                "--coordinator", "h:2"]), n_cards=4)
+    assert hosts["world"] == 12 and hosts["ranks"] == [8, 9, 10, 11]
 
 
 @pytest.mark.parametrize("flag", ["--stablehlo"])
