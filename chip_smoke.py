@@ -113,7 +113,22 @@ failure exits non-zero before the final line):
    train`` on the recipe (batch 64 of 256², bf16) for one epoch over
    every card: each rank's images/s, data-wait share and peak memory,
    one checkpoint, written by rank 0. Its ranks run as ``python3
-   chip_smoke.py --worker <kind> ...``.
+   chip_smoke.py --worker <kind> ...``; (c) runs on the resident path
+   (each rank's block paths are noted and checked);
+15. resident and exported program: (a) MitoNet at full width through
+   ``run_inference3d(mode="orthoplane", resident=True)`` beside the
+   streaming run in the same call, consensus equal RLE for RLE (slices/s,
+   per-axis forward seconds and seconds, K1 launches per axis, the
+   one-time upload's bytes and ms; the block path of each axis counted
+   by the script); (b) each axis from the host view in chunks of two
+   blocks against the device tensor, maps and runs equal slice for
+   slice (engine-alone seconds of both); (c) ``infer3d --resident`` on a
+   .npy crop, its class zarr byte-identical to the streaming command's;
+   (e) ``export --stablehlo`` at (1, 512, 512, 1), the .pt2 moved to the
+   card against the eager forward (TF32 off, within 1e-4 of max
+   |value|), export seconds and file size; (f) ``block_cost_analysis``
+   of the xy block beside its engine-alone time and the share of the
+   float32 peak.
 
 Each phase prints its seconds. The line before the last is the kernel table (JSON); the last line is
 ``{"ok": true, "device": {...}}``.
@@ -250,18 +265,23 @@ def device_ms(fn, reps, kernel=None):
     return total / 1e3 / reps
 
 
-def phase_device():
-    import torch
-
-    if not torch.cuda.is_available():
-        fail("torch.cuda.is_available() is false")
+def card_name_and_limit():
+    """Card 0's name and power limit as nvidia-smi gives them."""
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader", "-i", "0"],
         capture_output=True, text=True, timeout=60)
     if smi.returncode != 0 or not smi.stdout.strip():
         fail(f"nvidia-smi failed: {smi.stderr.strip()}")
-    print(smi.stdout.strip().splitlines()[0])
+    return smi.stdout.strip().splitlines()[0]
+
+
+def phase_device():
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false")
+    print(card_name_and_limit())
     print(f"torch {torch.__version__} cuda {torch.version.cuda}, "
           f"{torch.cuda.device_count()} visible device(s)")
 
@@ -2814,11 +2834,13 @@ def worker_multihost(rank, world, out):
     stats = {}
     dist.barrier()
     group.reset_launches()
-    t0 = time.time()
-    cons = multihost_run_inference3d(model, vol, block_size=8, stats=stats,
-                                     **kwargs)
-    torch.cuda.synchronize()
+    with PathCounter() as counter:
+        t0 = time.time()
+        cons = multihost_run_inference3d(model, vol, block_size=8,
+                                         stats=stats, **kwargs)
+        torch.cuda.synchronize()
     record = {"seconds": time.time() - t0, "stats": stats,
+              "paths": counter.paths(),
               "launches_by_card": dict(group.LAUNCHES_BY_CARD),
               "instances": None if cons is None else cons[1].instances}
     with open(Path(out) / f"multihost_rank{rank}.pkl", "wb") as f:
@@ -2908,9 +2930,13 @@ def phase_multi_device(ortho_vol, dirs, tmp, profile=False):
                 for a, s in rec["stats"].items()}
         print(f"multihost rank {r}: {rec['seconds']:.3f} s in the call; "
               f"per axis (slices, dispatches, d2h_bytes) {axes}; K1 "
-              f"launches by card {rec['launches_by_card']}")
+              f"launches by card {rec['launches_by_card']}; block paths "
+              f"{rec['paths']}")
         if not rec["launches_by_card"]:
             fail(f"multihost rank {r} launched no grouping kernel")
+        if rec["paths"] != ["infer_blocks_resident"] * 3:
+            fail(f"multihost rank {r} ran {rec['paths']}, not the "
+                 f"resident path on each axis")
     print(f"multihost over 2 processes on one card: {wall:.3f} s wall "
           f"(start-up and model build included), against "
           f"{single_s:.3f} s for one process (block 8, same call)")
@@ -3014,6 +3040,245 @@ def train_command(dirs, tmp):
             or len(summaries) != count:
         fail(f"train over {count} card(s): checkpoints {saved}, "
              f"{stdout.count('=> saved checkpoint')} saved by the ranks")
+
+
+class PathCounter:
+    """The script's own note of the engine's block paths while it is
+    entered: each call of ``FusedStackEngine.infer_blocks`` or
+    ``infer_blocks_resident`` as (path, group_pixels launches at the
+    call). run_inference3d calls one per axis, after the previous axis's
+    blocks were all launched, so the differences are the axes' launches.
+    The package itself keeps no such count."""
+
+    PATHS = ("infer_blocks", "infer_blocks_resident")
+
+    def __enter__(self):
+        from empanada_torch.inference.fused import FusedStackEngine
+        from empanada_torch.ops import group
+
+        self.calls = []
+        self.saved = {name: getattr(FusedStackEngine, name)
+                      for name in self.PATHS}
+        for name, orig in self.saved.items():
+            def wrapped(engine, *args, _name=name, _orig=orig, **kwargs):
+                self.calls.append((_name, group.LAUNCHES["group_pixels"]))
+                return _orig(engine, *args, **kwargs)
+            setattr(FusedStackEngine, name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        from empanada_torch.inference.fused import FusedStackEngine
+
+        for name, orig in self.saved.items():
+            setattr(FusedStackEngine, name, orig)
+
+    def paths(self):
+        return [name for name, _ in self.calls]
+
+
+def counted_orthoplane(model, vol, kwargs, label, resident):
+    """run_inference3d(orthoplane, resident=) on the plain ndarray with
+    the kernel counts set to 0 just before and read just after; fails
+    unless every axis ran the asked-for path and launched K1. Prints
+    slices/s and per axis forward seconds, seconds and K1 launches.
+    Returns (result, seconds, K1 launches per axis, stats)."""
+    import torch
+
+    from empanada_torch.cli.infer3d import run_inference3d
+    from empanada_torch.ops import group
+
+    path = "infer_blocks_resident" if resident else "infer_blocks"
+    stats = {}
+    group.reset_launches()
+    with PathCounter() as counter:
+        t0 = time.time()
+        result = run_inference3d(model, vol, stats=stats, progress=False,
+                                 resident=resident, **kwargs)
+        torch.cuda.synchronize()
+        seconds = time.time() - t0
+    marks = [n for _, n in counter.calls] + [group.LAUNCHES["group_pixels"]]
+    per_axis = {name: marks[a + 1] - marks[a] for a, name in enumerate(AXES)}
+    if counter.paths() != [path] * 3 or min(per_axis.values()) <= 0:
+        fail(f"{label}: paths {counter.paths()} (want {path} on every "
+             f"axis), K1 launches per axis {per_axis}")
+    n_slices = sum(vol.shape)
+    axes = " / ".join(f"{stats['axes'][a]['forward_seconds']:.3f} "
+                      f"{stats['axes'][a]['seconds']:.3f}" for a in AXES)
+    print(f"{label}: {n_slices / seconds:.2f} slices/s ({seconds:.3f} s); "
+          f"{path} on each axis; forward and whole seconds xy / xz / yz "
+          f"{axes}; K1 launches per axis {per_axis}")
+    return result, seconds, per_axis, stats
+
+
+def collect_blocks(block_iter):
+    """{z: (pan map, packed row)} of an engine pass, and its blocks."""
+    got, blocks = {}, 0
+    for z_indices, pan, packed in block_iter:
+        arr = np.asarray(packed).reshape(len(z_indices), -1, 3)
+        pan = np.asarray(pan)
+        blocks += 1
+        for j, z in enumerate(z_indices):
+            if z is not None:
+                got[z] = (pan[j], arr[j])
+    return got, blocks, len(z_indices)
+
+
+def phase_resident(vol, tmp):
+    """Phase 15: (a) MitoNet at full width through run_inference3d
+    (orthoplane) resident beside streaming in one call, consensus equal
+    RLE for RLE; (b) each axis on the host-view route in chunks of two
+    blocks against the device-tensor route, maps and runs equal slice for
+    slice, with engine-alone seconds of both; (c) ``infer3d --resident``
+    on a .npy crop against the streaming command, class zarr byte for
+    byte; (e) ``export --stablehlo`` at (1, 512, 512, 1), the .pt2 run on
+    the card against the eager forward; (f) block_cost_analysis of the
+    xy block beside its engine-alone time. (d), multihost on the
+    resident path, runs in phase 14. Returns K1 launches by path."""
+    import torch
+
+    from empanada_torch.cli import export as export_cli
+    from empanada_torch.cli import infer3d
+    from empanada_torch.data.zarr_store import open_zarr
+    from empanada_torch.export import FORWARD_KW, export_model
+    from empanada_torch.models import create_model
+    from empanada_torch.ops import group
+
+    cfg = dict(MITONET)
+    model = create_model(cfg.pop("arch"), device="cuda", seed=0, **cfg)
+    model.eval()
+    kwargs = inference_kwargs("orthoplane")
+
+    # (a) resident beside streaming (phases 5 and 14 ran these shapes)
+    stream, stream_s, _, _ = counted_orthoplane(
+        model, vol, kwargs, "streaming orthoplane", False)
+    resident, resident_s, resident_k1, stats = counted_orthoplane(
+        model, vol, kwargs, "resident orthoplane", True)
+    print(f"resident one-time upload: {stats['upload_bytes']} bytes in "
+          f"{stats['upload_seconds'] * 1e3:.3f} ms; resident "
+          f"{sum(vol.shape) / resident_s:.2f} slices/s against streaming "
+          f"{sum(vol.shape) / stream_s:.2f} in the same call")
+    if not same_instances(stream[1].instances, resident[1].instances):
+        fail("resident: the consensus differs from streaming's")
+    print(f"resident: consensus == streaming's, RLE for RLE "
+          f"({len(resident[1].instances)} instances)")
+
+    # (b) the host-view route in chunks of two blocks, and (f)
+    engine = make_engine(model)
+    vol_dev = torch.from_numpy(vol).cuda()
+    flops = None
+    for axis, name in enumerate(AXES):
+        t0 = time.time()
+        want, blocks, B = collect_blocks(engine.infer_blocks_resident(
+            torch.movedim(vol_dev, axis, 0)))
+        tensor_s = time.time() - t0
+        if flops is None:  # the xy pass: the largest block so far
+            flops = engine.block_cost_analysis()["flops"]
+            block_ms = tensor_s / blocks * 1e3
+            xy_block = (B,) + next(iter(want.values()))[0].shape
+        host = np.moveaxis(vol, axis, 0)
+        t0 = time.time()
+        got, _, _ = collect_blocks(engine.infer_blocks_resident(
+            host, chunk_slices=2 * B))
+        host_s = time.time() - t0
+        chunks = -(-blocks // 2)
+        bad = [z for z in want if not (
+            np.array_equal(want[z][0], got[z][0])
+            and np.array_equal(want[z][1], got[z][1]))]
+        if sorted(got) != sorted(want) or bad:
+            fail(f"resident {name}: the host-view route in chunks of "
+                 f"{2 * B} slices differs from the device route at "
+                 f"slices {bad[:8]}")
+        print(f"resident {name}: {len(want)} slices in {blocks} blocks of "
+              f"{B}; engine alone {tensor_s:.3f} s on the device tensor, "
+              f"{host_s:.3f} s from the host view in {chunks} chunks of "
+              f"{2 * B} slices; maps and runs equal slice for slice")
+
+    peak = 67e12  # H100 SXM float32 (no tensor cores), NVIDIA data sheet
+    print(f"xy block {xy_block}: block_cost_analysis {flops} FLOPs "
+          f"(convolutions and products, torch FlopCounterMode); engine "
+          f"alone {block_ms:.3f} ms a block -> "
+          f"{flops / (block_ms / 1e3) / 1e12:.2f} TFLOP/s, "
+          f"{flops / (block_ms / 1e3) / peak:.4f} of the 67 TFLOP/s "
+          f"float32 peak (NVIDIA H100 SXM data sheet; TF32 off); card "
+          f"{card_name_and_limit()}")
+
+    # (c) the command line on a .npy crop, resident beside streaming
+    tmp = Path(tmp) / "resident"
+    tmp.mkdir()
+    export_model(model.state_dict(), MITONET, str(tmp), "mitonet",
+                 norms=NORMS)
+    crop = vol[:40, :100, :150]
+    outs, cli_launches = {}, None
+    for tag, flags in (("stream", []), ("resident", ["--resident"])):
+        path = tmp / f"{tag}.npy"
+        np.save(path, crop)
+        group.reset_launches()
+        with PathCounter() as counter:
+            t0 = time.time()
+            infer3d.main([str(tmp / "mitonet.yaml"), str(path), "-mode",
+                          "orthoplane", "-qlen", "3"] + flags)
+            seconds = time.time() - t0
+        if tag == "resident":
+            cli_launches = group.LAUNCHES["group_pixels"]
+        want = "infer_blocks_resident" if flags else "infer_blocks"
+        if counter.paths() != [want] * 3:
+            fail(f"infer3d {' '.join(flags)}: paths {counter.paths()}")
+        seg = open_zarr(f"{path}_orthoplane_seg_class1.zarr")
+        outs[tag] = (np.asarray(seg[:]), seg.dtype,
+                     open(f"{path}_orthoplane_class1.json").read())
+        print(f"infer3d {' '.join(flags) or '(streaming)'} on a "
+              f"{crop.shape} .npy crop: {seconds:.3f} s, {want} on each "
+              f"axis, K1 launches {group.LAUNCHES['group_pixels']}")
+    if outs["stream"][1] != outs["resident"][1] \
+            or outs["stream"][0].tobytes() != outs["resident"][0].tobytes() \
+            or outs["stream"][2] != outs["resident"][2]:
+        fail("infer3d --resident: its class zarr or json differs from the "
+             "streaming command's")
+    print("infer3d --resident: class zarr byte-identical to streaming's, "
+          "json equal")
+
+    # (e) the exported program
+    import yaml
+    from torch.export.passes import move_to_device_pass
+
+    recipe = tmp / "mitonet_recipe.yaml"
+    with open(recipe, "w") as f:
+        yaml.safe_dump({"MODEL": dict(MITONET),
+                        "DATASET": {"labels": [1], "thing_list": [1],
+                                    "class_names": {1: "mito"},
+                                    "norms": NORMS}}, f)
+    torch.save({"model": {k: v.cpu() for k, v in
+                          model.state_dict().items()}}, tmp / "ckpt.pth")
+    t0 = time.time()
+    export_cli.main([str(recipe), str(tmp / "ckpt.pth"), str(tmp / "out"),
+                     "--stablehlo", "-name", "mitonet"])
+    export_s = time.time() - t0
+    program_path = tmp / "out" / "mitonet.pt2"
+    program = move_to_device_pass(torch.export.load(str(program_path)),
+                                  "cuda").module()
+    x = torch.from_numpy(np.random.default_rng(15).normal(
+        0, 1, (1, 1, 512, 512)).astype(np.float32)).cuda()
+    with torch.no_grad():
+        got = program(x)
+        want = model(x, **FORWARD_KW)
+    diffs = {}
+    for key in ("sem_logits", "ctr_hmp", "offsets"):
+        diffs[key] = float((got[key] - want[key]).abs().max())
+        scale = float(want[key].abs().max())
+        if got[key].device != x.device or diffs[key] > 1e-4 * scale:
+            fail(f"export --stablehlo: {key} on {got[key].device} differs "
+                 f"from the eager forward by {diffs[key]} (tolerance 1e-4 "
+                 f"of max |value| {scale})")
+    print(f"export --stablehlo of MitoNet at (1, 512, 512, 1): "
+          f"{export_s:.3f} s (checkpoint read, CPU trace, save), "
+          f"{program_path.stat().st_size / 2 ** 20:.1f} MiB .pt2; loaded "
+          f"and moved to the card, against the eager forward (TF32 off): "
+          f"max abs difference {diffs} (tolerance 1e-4 of max |value|)")
+    del model
+    torch.cuda.empty_cache()
+    return {"resident_orthoplane": sum(resident_k1.values()),
+            "resident_orthoplane_by_axis": resident_k1,
+            "resident_command_line": cli_launches}
 
 
 PORT = None
@@ -3145,6 +3410,9 @@ def main():
         row["launches_by_path"].update(timed_phase(
             "14 multi-device", phase_multi_device, ortho_vol, dirs, tmp,
             args.profile))
+        row["launches_by_path"].update(timed_phase(
+            "15 resident and exported program", phase_resident, ortho_vol,
+            tmp))
     finish(row)
 
 

@@ -4,8 +4,10 @@ turn a training checkpoint into the descriptor (``<name>.yaml`` +
 weight-only int8 artifact (``<name>.int8.pth``), and ``--from-torch``
 reads the checkpoint as a reference torch artifact (a plain checkpoint
 or a TorchScript archive, such as MitoNet's published ``.pth``) and
-converts it into the config's model. ``--stablehlo`` is refused: the
-artifact has no counterpart on the GPU."""
+converts it into the config's model. ``--stablehlo`` also writes the
+``torch.export`` program of the eval forward (``<name>.pt2``, input
+(1, 1, 512, 512) float32), the counterpart of the JAX package's
+StableHLO artifact."""
 
 from __future__ import annotations
 
@@ -27,7 +29,9 @@ def parse_args(argv=None):
     parser.add_argument("-pf", type=int, default=128,
                         help="Padding factor baked into the descriptor")
     parser.add_argument("--stablehlo", action="store_true",
-                        help="(refused: no StableHLO artifact on the GPU)")
+                        help="Also write the torch.export program of the "
+                             "eval forward (<name>.pt2, input (1, 1, 512, "
+                             "512) float32)")
     parser.add_argument("--quantize", action="store_true",
                         help="Also write a weight-only int8 artifact "
                              "(the analog of the reference's fbgemm INT8 "
@@ -44,10 +48,6 @@ def parse_args(argv=None):
 
 def main(argv=None):
     args = parse_args(argv)
-    if args.stablehlo:
-        raise SystemExit("--stablehlo: not ported yet in empanada_torch "
-                         "(the StableHLO artifact has no counterpart on "
-                         "the GPU)")
 
     from empanada_torch.config import load_config
     from empanada_torch.export import export_model, import_torch_model
@@ -65,7 +65,7 @@ def main(argv=None):
             thing_list=config["DATASET"]["thing_list"],
             labels=config["DATASET"]["labels"],
             class_names=config["DATASET"].get("class_names"),
-            quantize=args.quantize)
+            stablehlo=args.stablehlo, quantize=args.quantize)
         print(f"Imported torch artifact -> {args.save_dir}/{name}.yaml "
               f"({', '.join(k for k in desc if k.startswith('model'))})")
         return
@@ -88,8 +88,8 @@ def main(argv=None):
         thing_list=config["DATASET"]["thing_list"],
         labels=config["DATASET"]["labels"],
         class_names=config["DATASET"].get("class_names"),
-        finetune_params=finetune_params, quantize=args.quantize,
-        run_id=meta.get("run_id"))
+        finetune_params=finetune_params, stablehlo=args.stablehlo,
+        quantize=args.quantize, run_id=meta.get("run_id"))
     print(f"Exported {name} -> {args.save_dir} "
           f"({', '.join(k for k in desc if k.startswith('model'))})")
 

@@ -88,8 +88,11 @@ def parse_args(argv=None):
                              "descriptor (export --quantize with "
                              "calibration; models/quantization.py)")
     parser.add_argument("--resident", action="store_true",
-                        help="Device-resident volume path (one upload, "
-                             "blocks sliced on device; not ported yet)")
+                        help="Device-resident volume path: the volume "
+                             "uploads once and every block is sliced and "
+                             "padded on the device (same results as "
+                             "streaming; an in-memory volume such as "
+                             ".npy, full resolution, one device)")
     parser.add_argument("--use-cpu", action="store_true",
                         help="Run inference on the CPU instead of CUDA")
     parser.add_argument("--save-panoptic", action="store_true")
@@ -140,15 +143,19 @@ def run_inference3d(
     (inference/fused.py): one device dispatch per ``block_size`` slices.
     ``mesh`` (``parallel.create_mesh``) shards each block's forward over
     its devices and runs the rest on its first device (``device`` is
-    then ignored). ``resident`` raises NotImplementedError.
+    then ignored). ``resident``: where the volume is an in-memory
+    ndarray, with device normalization, no mesh and no downsampling
+    (the JAX package's gate; otherwise the run streams), the volume goes
+    to the device once (``stats["upload_bytes"]``,
+    ``stats["upload_seconds"]``) when it is at most ``CHUNK_BYTES``,
+    each axis a ``torch.movedim`` of it, else each axis as a host view
+    uploaded in chunks; the results equal streaming's.
     """
+    import torch
+
     from empanada_torch.data import VolumeDataset
     from empanada_torch.inference import patterns
-    from empanada_torch.inference.fused import FusedStackEngine
-
-    if resident:
-        raise NotImplementedError(
-            "the device-resident path is not ported")
+    from empanada_torch.inference.fused import CHUNK_BYTES, FusedStackEngine
 
     if isinstance(model, tuple):
         module, variables = model
@@ -193,6 +200,18 @@ def run_inference3d(
         mesh=mesh,
     )
 
+    resident = (resident and mesh is None and downsample_f == 1
+                and device_norms is not None
+                and isinstance(volume, np.ndarray))
+    on_device = None
+    if resident and volume.nbytes <= CHUNK_BYTES:
+        t0 = time.time()
+        on_device = torch.from_numpy(np.require(volume, requirements="CW")).to(
+            engine.device)
+        if stats is not None:
+            stats["upload_bytes"] = volume.nbytes
+            stats["upload_seconds"] = round(time.time() - t0, 6)
+
     finish_threads = []
     finish_errors = []
     for axis_name, axis in axes.items():
@@ -208,8 +227,16 @@ def run_inference3d(
         pan_stack = [] if save_panoptic_dir else None
         if pan_stack is not None:
             sl_h, sl_w = (int(s) for s in np.asarray(dataset[0]["size"]))
-        for z_indices, pan_block, packed in engine.infer_blocks(
-                dataset, upsampling=downsample_f):
+        if on_device is not None:
+            block_iter = engine.infer_blocks_resident(
+                torch.movedim(on_device, axis, 0))
+        elif resident:
+            block_iter = engine.infer_blocks_resident(
+                np.moveaxis(volume, axis, 0))
+        else:
+            block_iter = engine.infer_blocks(dataset,
+                                             upsampling=downsample_f)
+        for z_indices, pan_block, packed in block_iter:
             fm.put_block(z_indices, pan_block, packed)
             if pan_stack is not None:
                 # blocks carry padded maps; crop to this axis's true
@@ -276,13 +303,6 @@ def run_inference3d(
     return consensus
 
 
-def _refuse_unported(args):
-    """Exit on the flags whose paths this package does not have."""
-    if args.resident:
-        raise SystemExit("--resident: not ported yet in empanada_torch "
-                         "(streaming inference only)")
-
-
 def _mesh(args):
     """The -n-devices mesh (None for 0): the first N cards, or N CPU
     entries with --use-cpu; a -block-size that does not divide over it
@@ -325,7 +345,6 @@ def main(argv=None):
     args = parse_args(argv)
     assert math.log2(args.downsample_f).is_integer(), \
         "downsample factor must be a power of 2"
-    _refuse_unported(args)
     mesh = _mesh(args)
 
     from empanada_torch.data.zarr_store import create_zarr, read_volume
@@ -369,6 +388,7 @@ def main(argv=None):
         block_size=args.block_size,
         pipeline_depth=args.pipeline_depth,
         mesh=mesh,
+        resident=args.resident,
         save_panoptic_dir=(
             os.path.dirname(os.path.abspath(args.volume_path))
             if args.save_panoptic else None),

@@ -21,8 +21,15 @@ is dequantized to float32 on load. These are the JAX package's
 Other artifacts read here: the JAX package's own exports (``format:
 empanada_tpu``, its ``<name>.params.msgpack`` and ``<name>.int8.msgpack``
 decoded without the ``msgpack`` package, then ``weights.flax_to_torch``),
-and reference torch artifacts (``import_torch_model``). The StableHLO
-artifact has no counterpart on a GPU: asking for it raises.
+and reference torch artifacts (``import_torch_model``).
+
+The serialized forward (``stablehlo=True``, the JAX package's StableHLO
+artifact): ``<name>.pt2``, ``torch.export`` of the eval forward
+(``FORWARD_KW``) at one fixed input shape, taking (N, 1, H, W) float32
+and returning the forward's dict; the descriptor names it under
+``model_stablehlo`` with its input layout and shape. Load it with
+``torch.export.load`` (``torch.export.passes.move_to_device_pass`` moves
+it to another device); ``load_exported_model`` does not read it.
 """
 
 from __future__ import annotations
@@ -131,9 +138,16 @@ def export_model(state_dict, model_config, save_dir, name,
                  norms=None, padding_factor=128, thing_list=(1,),
                  labels=(1,), class_names=None, finetune_params=None,
                  stablehlo=False, quantize=False, calibration_data=None,
-                 quantize_scope=None, run_id=None, device=None):
+                 quantize_scope=None, run_id=None, device=None,
+                 input_shape=(1, 512, 512, 1)):
     """Write <name>.pth + <name>.yaml (+ <name>.int8.pth when
-    quantize=True); returns the descriptor dict (also written to YAML).
+    quantize=True, + <name>.pt2 when stablehlo=True); returns the
+    descriptor dict (also written to YAML).
+
+    ``input_shape``: the exported program's input, NHWC as the JAX
+    package names it; the program takes it as (N, 1, H, W) and is traced
+    on the device the state dict's tensors live on (a CUDA export holds
+    CUDA tensors).
 
     ``calibration_data``: iterable of normalized (N, 1, H, W) inputs
     (arrays or tensors) to calibrate the int8 activation scales on; the
@@ -144,10 +158,6 @@ def export_model(state_dict, model_config, save_dir, name,
     "all" for the others."""
     import yaml
 
-    if stablehlo:
-        raise NotImplementedError(
-            "the StableHLO artifact (stablehlo=True) has no counterpart on "
-            "the GPU; the .pth artifacts are the port's")
     scope = quantize_scope
     if quantize and scope is None:
         scope = ("encoder" if "BiFPN" in model_config.get("arch", "")
@@ -162,6 +172,7 @@ def export_model(state_dict, model_config, save_dir, name,
 
     os.makedirs(save_dir, exist_ok=True)
     weights_path = os.path.join(save_dir, f"{name}.pth")
+    state_device = next(iter(state_dict.values())).device
     state_dict = {k: v.detach().cpu() for k, v in state_dict.items()}
     torch.save(state_dict, weights_path)
 
@@ -209,9 +220,43 @@ def export_model(state_dict, model_config, save_dir, name,
         torch.save(int8_state, q_path)
         desc["model_quantized"] = q_path
 
+    if stablehlo:
+        n, h, w, c = input_shape
+        program_path = os.path.join(save_dir, f"{name}.pt2")
+        _export_program(state_dict, model_config, (n, c, h, w),
+                        state_device, program_path)
+        desc["model_stablehlo"] = program_path
+        desc["model_stablehlo_input"] = {"layout": "NCHW",
+                                         "shape": [n, c, h, w],
+                                         "dtype": "float32"}
+
     with open(os.path.join(save_dir, f"{name}.yaml"), "w") as f:
         yaml.safe_dump(desc, f)
     return desc
+
+
+class _EvalForward(torch.nn.Module):
+    """The model's eval forward (``FORWARD_KW``) as a one-input module."""
+
+    def __init__(self, model):
+        super().__init__()
+        self.model = model
+
+    def forward(self, x):
+        return self.model(x, **FORWARD_KW)
+
+
+def _export_program(state_dict, model_config, shape, device, out_path):
+    """``torch.export`` the eval forward at the fixed (N, 1, H, W)
+    ``shape`` on ``device`` and save it to ``out_path``."""
+    cfg = dict(model_config)
+    model = create_model(cfg.pop("arch"), device="cpu", **cfg)
+    model.load_state_dict(state_dict)
+    model = _EvalForward(model).to(device).eval()
+    example = torch.zeros(shape, dtype=torch.float32, device=device)
+    with torch.no_grad():
+        program = torch.export.export(model, (example,))
+    torch.export.save(program, out_path)
 
 
 def _measure_int8_drift(model, int8_state, act_scales, batches):

@@ -10,6 +10,14 @@ row is (n_runs, oh, ow); the copy to the host is started at dispatch
 time (pinned buffer + CUDA event), so up to ``pipeline_depth`` blocks
 stay in flight while the host matches earlier ones.
 
+Two ways to feed the blocks, one device step for both
+(``_block_step``): ``infer_blocks`` streams a dataset's slices (read and
+padded on a prefetch thread, one upload a block), and
+``infer_blocks_resident`` takes the whole volume on the device (one
+upload, or z-chunks double-buffered on a side stream) and slices and pads
+each block there (the caller orients an axis: ``torch.movedim`` on the
+device, ``np.moveaxis`` on the host).
+
 Emission semantics match the JAX engine exactly: slice z gets the window
 median for mid <= z < n - mid and its raw map at the stack edges.
 Maps and run coordinates stay on the factor-padded grid; the header
@@ -25,12 +33,15 @@ grouping kernel and the run extraction run exactly as without a mesh.
 
 from __future__ import annotations
 
+import itertools
 import math
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
+from types import SimpleNamespace
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from empanada_torch.device import resolve_device
 from empanada_torch.ops.postprocess import (
@@ -47,7 +58,11 @@ from empanada_torch.ops.resize import factor_pad
 from empanada_torch.ops.rle_device import extract_fg_runs
 from empanada_torch.parallel.mesh import replicate, shard_batch
 
-__all__ = ["FusedStackEngine"]
+__all__ = ["FusedStackEngine", "CHUNK_BYTES"]
+
+# the resident path's default chunk: whole blocks of at most this many
+# bytes of raw volume on the device (two while the next one uploads)
+CHUNK_BYTES = 2 << 30
 
 
 class _HostPacked:
@@ -89,7 +104,7 @@ class _DeviceMaps:
 
 
 class FusedStackEngine:
-    """Blocked, fused 3D stack inference engine (streaming path).
+    """Blocked, fused 3D stack inference engine.
 
     ``module``: an ``nn.Module`` honoring the engine contract — called as
     ``module(x, render_steps=, interpolate_ins=)`` on (B, 1, H, W)
@@ -103,9 +118,11 @@ class FusedStackEngine:
     forward over the mesh's devices (``block_size`` must divide over
     it); the engine then runs on the mesh's first device.
 
-    ``infer_blocks(dataset)`` yields (z_indices, pan_block, packed) per
-    block; ``packed`` converts with ``np.asarray`` to the (B, 1+R, 3)
-    int32 buffer, ``pan_block`` holds the padded (B, ph, pw) maps.
+    ``infer_blocks(dataset)`` and ``infer_blocks_resident(volume)``
+    yield (z_indices, pan_block, packed) per block; ``packed`` converts
+    with ``np.asarray`` to the (B, 1+R, 3) int32 buffer, ``pan_block``
+    holds the padded (B, ph, pw) maps. ``block_cost_analysis()`` counts
+    a block's FLOPs.
     """
 
     def __init__(self, module, variables, thing_list, block_size=None,
@@ -148,6 +165,7 @@ class FusedStackEngine:
         self.pipeline_depth = int(pipeline_depth)
         self.last_dispatch_count = 0  # blocks run in the last pass
         self._num_classes = num_classes
+        self._cost_pass = None  # the largest pass run (block_cost_analysis)
 
     # -----------------------------------------------------------------
 
@@ -268,118 +286,257 @@ class FusedStackEngine:
 
     # -----------------------------------------------------------------
 
-    @torch.inference_mode()
-    def infer_blocks(self, dataset, upsampling=1):
-        assert math.log2(upsampling).is_integer()
-        render_steps = int(2 + math.log2(upsampling))
-        ks, mid = self.ks, self.mid
-        n = len(dataset)
-        dev = self.device
 
-        ex0 = dataset[0]
-        img0 = np.asarray(ex0["image"])
-        if self.device_norms is None and img0.dtype != np.float32:
-            img0 = img0.astype(np.float32)
-        ph = (-img0.shape[0]) % self.padding_factor + img0.shape[0]
-        pw = (-img0.shape[1]) % self.padding_factor + img0.shape[1]
-        B = self._resolve_block((ph, pw), n)
-        H, W = ph * upsampling, pw * upsampling  # sem resolution
+    def _prepare(self, pad_shape, crop, n, upsampling):
+        """The constants of one pass over n slices of true size ``crop``,
+        padded to ``pad_shape`` (sem resolution ``upsampling`` times
+        that)."""
+        assert math.log2(upsampling).is_integer()
+        ph, pw = pad_shape
+        B = self._resolve_block(pad_shape, n)
         if self._num_classes is None:
             self._num_classes = max(
                 int(getattr(self.module, "num_classes", 1)),
                 (max(self.thing_list) + 1) if self.thing_list else 1, 2)
-        num_classes = self._num_classes
-        max_runs = self.max_runs or self._auto_max_runs(H, W)
-        crop = tuple(int(s) for s in ex0["size"])
         norms = self._norms()
-        pad_mask = (self._pad_mask(crop, (ph, pw), upsampling)
+        pad_mask = (self._pad_mask(crop, pad_shape, upsampling)
                     if norms is not None else None)
-        pad_masks = [None if pad_mask is None else pad_mask.to(d)
-                     for d in self.devices]
-        table = thing_table(self.thing_list, num_classes, dev)
+        return SimpleNamespace(
+            n=n, B=B, pad_shape=pad_shape, crop=crop, upsampling=upsampling,
+            pixels=B * ph * pw * upsampling ** 2,
+            render_steps=int(2 + math.log2(upsampling)),
+            num_classes=self._num_classes,
+            max_runs=self.max_runs or self._auto_max_runs(
+                ph * upsampling, pw * upsampling),
+            norms=norms,
+            pad_masks=[None if pad_mask is None else pad_mask.to(d)
+                       for d in self.devices],
+            table=thing_table(self.thing_list, self._num_classes,
+                              self.device))
 
-        n_sem_ch = getattr(self.module, "num_classes", 1)
-        h4 = ph // 4 if self.coarse_boundaries else ph
-        w4 = pw // 4 if self.coarse_boundaries else pw
-        carry_sem = torch.zeros((ks - 1, n_sem_ch, H, W), device=dev)
-        carry_ctr = torch.zeros((mid, h4, w4), device=dev)
-        carry_off = torch.zeros((mid, h4, w4, 2), device=dev)
+    def _zero_carry(self, p):
+        """The median window's carry before a pass's first block: ks - 1
+        maps of sem probabilities, mid of centers and offsets."""
+        ph, pw = p.pad_shape
+        h4, w4 = (ph // 4, pw // 4) if self.coarse_boundaries else (ph, pw)
+        dev = self.device
+        return (torch.zeros((self.ks - 1,
+                             getattr(self.module, "num_classes", 1),
+                             ph * p.upsampling, pw * p.upsampling),
+                            device=dev),
+                torch.zeros((self.mid, h4, w4), device=dev),
+                torch.zeros((self.mid, h4, w4, 2), device=dev))
 
-        # emit z = block_start + j - mid; block starts cover [0, n + mid)
-        block_starts = list(range(0, n + mid, B))
+    def _block_step(self, p, batch, block_start, carry):
+        """One block on the device: the (B, ph, pw) batch of slices
+        block_start .. block_start + B - 1 -> forward -> z-median window
+        (the previous blocks' maps come in ``carry``) -> postprocess ->
+        (pan maps, packed runs, next carry). The block emits slice z =
+        block_start + j - mid: its window median for mid <= z < n - mid,
+        its raw map at the stack edges."""
+        ks, mid, B = self.ks, self.mid, p.B
+        sem, ctr, off = self._forward(batch, p.render_steps, p.norms,
+                                      p.pad_masks)
+        carry_sem, carry_ctr, carry_off = carry
+        allsem = torch.cat([carry_sem, sem], dim=0)
+        allctr = torch.cat([carry_ctr, ctr], dim=0)
+        alloff = torch.cat([carry_off, off], dim=0)
+        # window j = allsem[j : j+ks]; emitted slice sits at j+mid
+        win = allsem.unfold(0, ks, 1)[:B]      # (B, C, H, W, ks)
+        med = median_small(win, dim=-1)
+        raw = allsem[mid:mid + B]
+        z = torch.arange(block_start - mid, block_start - mid + B,
+                         device=allsem.device)
+        use_median = (z >= mid) & (z < p.n - mid)
+        emit_sem = torch.where(use_median[:, None, None, None], med, raw)
+        pan, packed = self._postprocess(
+            emit_sem, allctr[:B], alloff[:B].contiguous(), p.num_classes,
+            p.upsampling, p.max_runs, p.crop, p.table)
+        carry = (allsem[allsem.shape[0] - (ks - 1):],
+                 allctr[allctr.shape[0] - mid:],
+                 alloff[alloff.shape[0] - mid:])
+        return pan, packed, carry
+
+    def _blocks(self, p, batches):
+        """Run one pass's blocks in order and yield (z_indices, pan maps,
+        packed) with up to ``pipeline_depth`` blocks in flight.
+        ``batches`` yields (block_start, (B, ph, pw) batch) for the block
+        starts range(0, n + mid, B)."""
+        mid = self.mid
+        carry = self._zero_carry(p)
+        depth = max(self.pipeline_depth, 0)
+        inflight = deque()
+        self.last_dispatch_count = 0
+        for block_start, batch in batches:
+            pan, packed, carry = self._block_step(p, batch, block_start,
+                                                  carry)
+            self.last_dispatch_count += 1
+            if self._cost_pass is None \
+                    or p.pixels > self._cost_pass.pixels:
+                self._cost_pass = p
+            z_indices = [block_start + j - mid
+                         if 0 <= block_start + j - mid < p.n else None
+                         for j in range(p.B)]
+            inflight.append((z_indices, _DeviceMaps(pan),
+                             self._to_host(packed)))
+            while len(inflight) > depth:
+                yield inflight.popleft()
+        while inflight:
+            yield inflight.popleft()
+
+    @torch.inference_mode()
+    def infer_blocks(self, dataset, upsampling=1):
+        """Stream the dataset's slices through the blocks: a prefetch
+        thread reads and pads each block on the host (pinned), and the
+        block uploads when it runs."""
+        n = len(dataset)
+        ex0 = dataset[0]
+        img0 = np.asarray(ex0["image"])
+        if self.device_norms is None and img0.dtype != np.float32:
+            img0 = img0.astype(np.float32)
+        pf = self.padding_factor
+        p = self._prepare((img0.shape[0] + (-img0.shape[0]) % pf,
+                           img0.shape[1] + (-img0.shape[1]) % pf),
+                          tuple(int(s) for s in ex0["size"]), n, upsampling)
 
         def load_block(block_start):
-            """Read + pad one block of slices on a prefetch thread."""
-            images, use_median = [], []
-            for j in range(B):
-                src = block_start + j
+            """Read + pad one block of slices on the prefetch thread."""
+            images = []
+            for src in range(block_start, block_start + p.B):
                 if src < n:
-                    ex = dataset[src] if src != 0 else ex0
-                    img = np.asarray(ex["image"])
+                    img = np.asarray((dataset[src] if src else ex0)["image"])
                     if self.device_norms is None \
                             and img.dtype != np.float32:
                         img = img.astype(np.float32)
                 else:
                     img = np.zeros_like(img0)
                 images.append(img)
-                z = block_start + j - mid
-                use_median.append(mid <= z < n - mid)
-            batch, _ = factor_pad(np.stack(images), self.padding_factor)
+            batch, _ = factor_pad(np.stack(images), pf)
             batch = torch.from_numpy(np.ascontiguousarray(batch))
-            use_median = torch.tensor(use_median)
-            if dev.type == "cuda":  # async uploads need pinned buffers
-                batch = batch.pin_memory()
-                use_median = use_median.pin_memory()
-            return batch, use_median
+            # async uploads need pinned buffers
+            return batch.pin_memory() if self.device.type == "cuda" \
+                else batch
 
-        depth = max(self.pipeline_depth, 0)
+        def batches(pool):
+            starts = iter(range(0, n + self.mid, p.B))
+            queue = deque((s, pool.submit(load_block, s)) for s in
+                          itertools.islice(starts,
+                                           max(self.pipeline_depth, 0) + 2))
+            while queue:
+                block_start, fut = queue.popleft()
+                batch = fut.result()
+                nxt = next(starts, None)
+                if nxt is not None:
+                    queue.append((nxt, pool.submit(load_block, nxt)))
+                yield block_start, batch
+
         pool = ThreadPoolExecutor(max_workers=1)
-        load_futs = {}
-        prefetch = depth + 2
-
-        def ensure_loads(upto):
-            for k in range(min(upto, len(block_starts))):
-                if k not in load_futs:
-                    load_futs[k] = pool.submit(load_block, block_starts[k])
-
-        ensure_loads(prefetch)
-        inflight = deque()
-        self.last_dispatch_count = 0
         try:
-            for bi, block_start in enumerate(block_starts):
-                batch, use_median = load_futs.pop(bi).result()
-                ensure_loads(bi + 1 + prefetch)
-                sem, ctr, off = self._forward(batch, render_steps, norms,
-                                              pad_masks)
-
-                allsem = torch.cat([carry_sem, sem], dim=0)
-                allctr = torch.cat([carry_ctr, ctr], dim=0)
-                alloff = torch.cat([carry_off, off], dim=0)
-                # window j = allsem[j : j+ks]; emitted slice sits at j+mid
-                win = allsem.unfold(0, ks, 1)[:B]      # (B, C, H, W, ks)
-                med = median_small(win, dim=-1)
-                raw = allsem[mid:mid + B]
-                um = use_median.to(dev, non_blocking=True)
-                emit_sem = torch.where(um[:, None, None, None], med, raw)
-
-                pan, packed = self._postprocess(
-                    emit_sem, allctr[:B], alloff[:B].contiguous(),
-                    num_classes, upsampling, max_runs, crop, table)
-                carry_sem = allsem[allsem.shape[0] - (ks - 1):]
-                carry_ctr = allctr[allctr.shape[0] - mid:]
-                carry_off = alloff[alloff.shape[0] - mid:]
-                self.last_dispatch_count += 1
-
-                z_indices = [block_start + j - mid
-                             if 0 <= block_start + j - mid < n else None
-                             for j in range(B)]
-                inflight.append((z_indices, _DeviceMaps(pan),
-                                 self._to_host(packed)))
-                while len(inflight) > depth:
-                    yield inflight.popleft()
-                if block_start + B - mid >= n:
-                    break
-            while inflight:
-                yield inflight.popleft()
+            yield from self._blocks(p, batches(pool))
         finally:
             pool.shutdown(wait=False, cancel_futures=True)
+
+    @torch.inference_mode()
+    def infer_blocks_resident(self, volume, upsampling=1,
+                              chunk_slices=None):
+        """``infer_blocks`` over a whole (n, h, w) volume held on the
+        device, with the same yield contract and exactly the same maps
+        and runs: each block is sliced, padded and made contiguous on the
+        device, so no block goes through the host.
+
+        ``volume``: a host ndarray, uploaded in z-chunks of
+        ``chunk_slices`` (rounded down to a multiple of the block, at
+        least one block; by default as many whole blocks as fit in
+        ``CHUNK_BYTES``), the next chunk uploading on a side stream while
+        the current one computes; or a tensor already on the engine's
+        device (an axis oriented with ``torch.movedim``), sliced in
+        place. The caller orients the axis; leave the dtype native
+        (uint8 with ``device_norms``; without them the volume is cast to
+        float32). One device and full-resolution slices only."""
+        if self.mesh is not None:
+            raise ValueError("the resident path runs on one device; a "
+                             "mesh streams its blocks (infer_blocks)")
+        if upsampling != 1:
+            raise ValueError("the resident path takes full-resolution "
+                             "slices; downsampled passes use "
+                             "infer_blocks(dataset, upsampling=)")
+        dev = self.device
+        on_device = isinstance(volume, torch.Tensor)
+        if on_device and volume.device != dev:
+            raise ValueError(f"volume on {volume.device}, engine on {dev}")
+        if self.device_norms is None:
+            volume = volume.float() if on_device \
+                else np.asarray(volume, np.float32)
+        n, oh, ow = volume.shape
+        pf = self.padding_factor
+        ph, pw = oh + (-oh) % pf, ow + (-ow) % pf
+        p = self._prepare((ph, pw), (oh, ow), n, upsampling)
+        B = p.B
+        if chunk_slices is None:
+            per_slice = oh * ow * (volume.element_size() if on_device
+                                   else volume.itemsize)
+            chunk_len = max(B, CHUNK_BYTES // max(per_slice, 1) // B * B)
+        else:
+            chunk_len = max(B, chunk_slices // B * B)
+        side = torch.cuda.Stream(dev) if dev.type == "cuda" \
+            and not on_device else None
+
+        def upload(c0):
+            """Chunk [c0, c0 + chunk_len) of the volume on the device (no
+            slice where it starts past the volume's end), and the event
+            its upload records (None where nothing is copied
+            asynchronously)."""
+            part = volume[c0:min(c0 + chunk_len, n)]
+            if on_device:
+                return part, None
+            host = torch.from_numpy(np.require(part, requirements="CW"))
+            if side is None or not host.numel():
+                return host.to(dev), None
+            host = host.pin_memory()
+            with torch.cuda.stream(side):
+                chunk = host.to(dev, non_blocking=True)
+                uploaded = torch.cuda.Event()
+                uploaded.record(side)
+            return chunk, uploaded
+
+        def batches():
+            chunks = {}
+            for block_start in range(0, n + self.mid, B):
+                ci = block_start // chunk_len
+                for c in (ci, ci + 1):  # the next chunk uploads meanwhile
+                    if c not in chunks and c * chunk_len < n + self.mid:
+                        chunks[c] = upload(c * chunk_len)
+                # the previous chunk's last block is enqueued: the
+                # allocator reuses its memory only after that work ends
+                chunks.pop(ci - 1, None)
+                chunk, uploaded = chunks[ci]
+                if uploaded is not None:
+                    compute = torch.cuda.current_stream(dev)
+                    compute.wait_event(uploaded)
+                    chunk.record_stream(compute)
+                    chunks[ci] = (chunk, None)
+                part = chunk[block_start - ci * chunk_len:][:B]
+                yield block_start, F.pad(
+                    part, (0, pw - ow, 0, ph - oh, 0, B - len(part)))
+
+        yield from self._blocks(p, batches())
+
+    def block_cost_analysis(self):
+        """{"flops": n} of one block of the largest shape run so far
+        (forward and postprocess, counted once on zeros by
+        ``torch.utils.flop_counter.FlopCounterMode``), or None before the
+        first block. The count covers convolutions and matrix products
+        (2 operations a multiply-add); XLA's cost analysis of the JAX
+        package's block function also counts elementwise operations, so
+        the two differ by those and neither is wrong. A count runs the
+        block once more on the device (its grouping launch counts)."""
+        from torch.utils.flop_counter import FlopCounterMode
+
+        p = self._cost_pass
+        if p is None:
+            return None
+        batch = torch.zeros((p.B,) + p.pad_shape, device=self.device)
+        counter = FlopCounterMode(display=False)
+        with torch.inference_mode(), counter:
+            self._block_step(p, batch, 0, self._zero_carry(p))
+        return {"flops": counter.get_total_flops()}

@@ -8,8 +8,10 @@ tracking and consensus (reference scripts/inference3d_multigpu.py:276-379
 - each process takes a CONTIGUOUS z-shard of every axis pass, extended
   by a median-window halo (``mid`` slices each side) so every emitted
   map is identical to the single-process run's;
-- each process runs the fused blocked engine on its own card and decodes
-  its slices' runs to RLEs, so only O(#runs) bytes leave a device;
+- each process runs the fused blocked engine's resident path on its own
+  card (its shard uploads once, blocks are sliced on the device) and
+  decodes its slices' runs to RLEs, so only O(#runs) bytes leave a
+  device;
 - rank 0 gathers the ordered shards (``collectives.all_gather_objects``,
   over gloo), then runs the single-process matching -> backward matching
   -> tracking -> consensus flow of ``cli.infer3d.run_inference3d``.
@@ -34,8 +36,9 @@ def z_shard(n, rank, world):
 
 def local_rle_shard(engine, vol_view, start, end, *, labels, label_divisor,
                     thing_list, upsampling=1, stats=None):
-    """Run the fused engine over this process's extended z-shard and
-    return [(global_z, unmatched rle_seg)] for global z in [start, end).
+    """Run the fused engine's resident path over this process's extended
+    z-shard ``vol_view[lo:hi]`` and return [(global_z, unmatched
+    rle_seg)] for global z in [start, end).
 
     The shard is extended by ``mid`` halo slices each side so the median
     window sees the same neighbours as the single-process pass.
@@ -53,13 +56,11 @@ def local_rle_shard(engine, vol_view, start, end, *, labels, label_divisor,
     mid = engine.mid
     lo = max(0, start - mid)
     hi = min(n, end + mid)
-    ext = _Slices(vol_view, lo, hi)
-
     dispatches = 0
     d2h_bytes = 0
     out = []
-    for z_indices, pan_block, packed in engine.infer_blocks(
-            ext, upsampling=upsampling):
+    for z_indices, pan_block, packed in engine.infer_blocks_resident(
+            vol_view[lo:hi], upsampling=upsampling):
         arr = np.asarray(packed).reshape(len(z_indices), -1, 3)
         dispatches += 1
         d2h_bytes += arr.nbytes
@@ -86,20 +87,6 @@ def local_rle_shard(engine, vol_view, start, end, *, labels, label_divisor,
         stats["dispatches"] = dispatches
         stats["d2h_bytes"] = d2h_bytes
     return out
-
-
-class _Slices:
-    """Slices [lo, hi) of a (z, y, x) view as the engine's dataset."""
-
-    def __init__(self, view, lo, hi):
-        self.view, self.lo, self.hi = view, lo, hi
-
-    def __len__(self):
-        return self.hi - self.lo
-
-    def __getitem__(self, i):
-        image = np.asarray(self.view[self.lo + i])
-        return {"index": i, "image": image, "size": image.shape}
 
 
 def multihost_run_inference3d(

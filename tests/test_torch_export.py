@@ -1,7 +1,9 @@
 """The port's exported-model loader and infer3d command line, held
 against the JAX package's: descriptor keys and defaults, the forward of
-the same variables exported by both, the flag surface (recipe defaults,
-explicit flags, unknown keys), the refusals of what is not ported, and
+the same variables exported by both, the exported program (``.pt2``,
+``stablehlo=True``: exact round trip, the JAX package's ``.stablehlo``
+within 1e-5, the ``export --stablehlo`` command), the flag surface
+(recipe defaults, explicit flags, unknown keys), the refusals, and
 ``main`` end to end on the CPU (class zarr == dense fill of the json).
 
 Tolerance of the forward comparison: 1e-4 of max |value| per output
@@ -134,16 +136,105 @@ def test_exports_of_both_packages_give_the_same_forward(exported):
                                    err_msg=key)
 
 
+@pytest.fixture(scope="module")
+def programs(tmp_path_factory, tiny_variables):
+    """(port descriptor, JAX StableHLO path): the eval forward of the same
+    variables exported by both packages at (1, 128, 128, 1)."""
+    root = tmp_path_factory.mktemp("programs")
+    desc = export.export_model(flax_to_torch(tiny_variables), MODEL_CONFIG,
+                               str(root / "torch"), "p", norms=NORMS,
+                               stablehlo=True, input_shape=(1, 128, 128, 1))
+    jax_export.export_model(tiny_variables, MODEL_CONFIG, str(root / "jax"),
+                            "p", norms=NORMS, stablehlo=True,
+                            input_shape=(1, 128, 128, 1))
+    return desc, str(root / "jax" / "p.stablehlo")
+
+
+def _program_input(seed):
+    return np.random.default_rng(seed).normal(
+        0, 1, (1, 128, 128, 1)).astype(np.float32)
+
+
+def test_exported_program_round_trip_is_exact(programs):
+    """The .pt2 reloads and gives the eager forward exactly on the CPU;
+    moved to another device (meta here) it holds no CPU tensor."""
+    from torch.export.passes import move_to_device_pass
+
+    desc, _ = programs
+    assert desc["model_stablehlo"].endswith("p.pt2")
+    assert desc["model_stablehlo_input"] == {
+        "layout": "NCHW", "shape": [1, 1, 128, 128], "dtype": "float32"}
+    model, _ = export.load_exported_model(
+        desc["model_stablehlo"].replace(".pt2", ".yaml"), device="cpu")
+    x = torch.from_numpy(_program_input(5)).permute(0, 3, 1, 2).contiguous()
+    program = torch.export.load(desc["model_stablehlo"])
+    with torch.no_grad():
+        got = program.module()(x)
+        want = model(x, **export.FORWARD_KW)
+        on_meta = move_to_device_pass(program, "meta").module()(
+            x.to("meta"))
+    assert sorted(got) == sorted(want) == ["ctr_hmp", "offsets",
+                                           "sem_logits"]
+    for key in want:
+        torch.testing.assert_close(got[key], want[key], rtol=0, atol=0)
+        assert on_meta[key].device.type == "meta"
+        assert on_meta[key].shape == want[key].shape
+
+
+def test_exported_program_matches_jax_stablehlo(programs):
+    """The .pt2 against the JAX package's .stablehlo of the same
+    variables, called through ``jax.export.deserialize``: within 1e-5
+    (float32, another summation order)."""
+    from jax import export as jax_program
+
+    desc, hlo_path = programs
+    x = _program_input(6)
+    with open(hlo_path, "rb") as f:
+        want = jax_program.deserialize(f.read()).call(x)
+    with torch.no_grad():
+        got = torch.export.load(desc["model_stablehlo"]).module()(
+            torch.from_numpy(x).permute(0, 3, 1, 2).contiguous())
+    for key in ("sem_logits", "ctr_hmp", "offsets"):
+        a = np.asarray(want[key])
+        b = got[key].permute(0, 2, 3, 1).numpy()
+        assert a.shape == b.shape and np.abs(a).max() > 0.05, key
+        np.testing.assert_allclose(b, a, rtol=0, atol=1e-5, err_msg=key)
+
+
+def test_export_command_writes_the_program(tmp_path, tiny_variables):
+    """``export --stablehlo`` writes <name>.pt2 at (1, 1, 512, 512) and
+    names it in the descriptor; the program's outputs have the eager
+    forward's shapes (run on the meta device: no arithmetic)."""
+    from torch.export.passes import move_to_device_pass
+
+    from empanada_torch.cli import export as export_cli
+
+    recipe = tmp_path / "recipe.yaml"
+    with open(recipe, "w") as f:
+        yaml.safe_dump({"MODEL": MODEL_CONFIG,
+                        "DATASET": {"labels": [1], "thing_list": [1],
+                                    "class_names": {1: "mito"},
+                                    "norms": NORMS}}, f)
+    state = flax_to_torch(tiny_variables)
+    torch.save({"model": state}, tmp_path / "ckpt.pth")
+    export_cli.main([str(recipe), str(tmp_path / "ckpt.pth"),
+                     str(tmp_path / "out"), "--stablehlo", "-name", "tiny"])
+    desc = yaml.safe_load(open(tmp_path / "out" / "tiny.yaml"))
+    assert desc["model_stablehlo"] == str(tmp_path / "out" / "tiny.pt2")
+    assert desc["model_stablehlo_input"]["shape"] == [1, 1, 512, 512]
+    program = move_to_device_pass(
+        torch.export.load(desc["model_stablehlo"]), "meta").module()
+    with torch.no_grad():
+        got = program(torch.zeros((1, 1, 512, 512), device="meta"))
+    assert {k: tuple(v.shape) for k, v in got.items()} == {
+        "sem_logits": (1, 1, 512, 512), "ctr_hmp": (1, 1, 128, 128),
+        "offsets": (1, 2, 128, 128)}
+
+
 def test_refusals_of_the_loader_and_exporter(tmp_path, exported,
                                              tiny_variables):
-    """The StableHLO artifact is refused before any write; a descriptor
-    of another format, and an int8 load of a descriptor without the int8
-    artifact, are refused by name."""
-    state = flax_to_torch(tiny_variables)
-    with pytest.raises(NotImplementedError, match="StableHLO"):
-        export.export_model(state, MODEL_CONFIG, str(tmp_path), "s",
-                            stablehlo=True)
-    assert list(tmp_path.iterdir()) == []  # refused before any write
+    """A descriptor of another format, and an int8 load of a descriptor
+    without the int8 artifact, are refused by name."""
     with pytest.raises(ValueError, match="model_quantized"):
         export.load_exported_model(exported[0], quantized=True, device="cpu")
     desc = yaml.safe_load(open(exported[0]))
@@ -155,17 +246,14 @@ def test_refusals_of_the_loader_and_exporter(tmp_path, exported,
                                    device="cpu")
 
 
-@pytest.mark.parametrize("flags", [["-n-devices", "2", "-block-size", "3"],
-                                   ["--resident"]])
+@pytest.mark.parametrize("flags", [["-n-devices", "2", "-block-size", "3"]])
 def test_main_refuses_unported_flags(tmp_path, flags):
     """Refused by name before any work: the files need not exist.
-    ``--resident`` is not ported; ``-n-devices`` is, and refuses a block
-    that does not divide over its mesh (as the JAX engine does)."""
+    ``-n-devices`` refuses a block that does not divide over its mesh
+    (as the JAX engine does)."""
     argv = [str(tmp_path / "none.yaml"), str(tmp_path / "none.npy"),
             "--use-cpu"] + flags
-    match = {"-n-devices": "-block-size 3 must divide over the 2-device "
-                           "mesh",
-             "--resident": "--resident: not ported yet"}[flags[0]]
+    match = "-block-size 3 must divide over the 2-device mesh"
     with pytest.raises(SystemExit, match=match):
         infer3d.main(argv)
 
@@ -294,8 +382,9 @@ def test_dispatcher(monkeypatch, capsys, tmp_path):
         assert "infer3d" in capsys.readouterr().out
     monkeypatch.setattr(sys, "argv", [
         "empanada_torch", "infer3d", str(tmp_path / "m.yaml"),
-        str(tmp_path / "v.npy"), "--use-cpu", "--resident"])
-    with pytest.raises(SystemExit, match="--resident: not ported yet"):
+        str(tmp_path / "v.npy"), "--use-cpu", "-n-devices", "2",
+        "-block-size", "3"])
+    with pytest.raises(SystemExit, match="-block-size 3 must divide"):
         dispatcher.main()
 
 

@@ -314,23 +314,19 @@ def test_png_codec_reads_where_no_image_library_imports(tmp_path):
 
 
 @pytest.mark.parametrize("kwargs", [
-    {"mesh": [torch.device("cpu")] * 2, "block_size": 3},
-    {"resident": True}])
+    {"mesh": [torch.device("cpu")] * 2, "block_size": 3}])
 def test_mesh_and_resident_are_refused_by_name(kwargs):
-    """The device-resident path is refused by name; a mesh runs, and
-    refuses a block that does not divide over it, as the JAX engine
-    does."""
+    """A mesh runs, and refuses a block that does not divide over it, as
+    the JAX engine does (the resident path runs: its refusals are in
+    test_torch_resident.py)."""
     from empanada_torch.cli.infer3d import run_inference3d
     from empanada_torch.parallel import create_mesh
     from empanada_torch.synthetic import SyntheticModule
 
     kwargs = dict(kwargs)
-    if "mesh" in kwargs:
-        kwargs["mesh"] = create_mesh(devices=kwargs["mesh"])
-        error, match = ValueError, "must divide over the 2-device mesh"
-    else:
-        error, match = NotImplementedError, "device-resident"
-    with pytest.raises(error, match=match):
+    kwargs["mesh"] = create_mesh(devices=kwargs["mesh"])
+    with pytest.raises(ValueError, match="must divide over the 2-device "
+                                         "mesh"):
         run_inference3d(SyntheticModule(), np.zeros((4, 16, 16), np.float32),
                         labels=[1], thing_list=[1], device="cpu", **kwargs)
 

@@ -213,14 +213,6 @@ def test_train_refuses_multiprocess_flags(argv, flag):
     assert hosts["world"] == 12 and hosts["ranks"] == [8, 9, 10, 11]
 
 
-@pytest.mark.parametrize("flag", ["--stablehlo"])
-def test_export_refuses_unported_flags(flag):
-    from empanada_torch.cli import export
-
-    with pytest.raises(SystemExit, match=f"{flag}: not ported yet"):
-        export.main(["c.yaml", "ckpt.pth", "out", flag])
-
-
 def test_whole_pretraining_loads_a_checkpoint(tmp_path):
     first = Trainer(_config(), device="cpu", seed=5)
     first.init_state(4)
