@@ -128,7 +128,25 @@ failure exits non-zero before the final line):
    card against the eager forward (TF32 off, within 1e-4 of max
    |value|), export seconds and file size; (f) ``block_cost_analysis``
    of the xy block beside its engine-alone time and the share of the
-   float32 peak.
+   float32 peak;
+16. the bench MitoNet (``empanada_torch.bench_heads``: the seeded
+   full-width backbone with the committed ridge-fitted heads, whose
+   backbone fingerprint is checked) on the bench volumes: (a) the
+   headline orthoplane volume (128, 320, 320) with 150 disjoint
+   instances, streaming, after a warm-up of its slice shapes: slices/s,
+   per-axis forward and whole seconds, K1 launches, instances matched a
+   slice and overflow slices, consensus seconds and instances against
+   the ground truth's; the main path's own K1 ids on every block of
+   every axis held against ``group_pixels_plain`` on the same centers,
+   valid mask and offsets; the host half again with the numpy host half
+   on the same device outputs (no device work), consensus equal RLE for
+   RLE; ``resident=True``, consensus equal; (b) that consensus scored
+   against its ground truth with the port's evaluator (semantic IoU,
+   F1@0.5, PQ; fails below 0.5 semantic IoU); K1 timed on the busiest
+   recorded xy block; (c) the product-density slab (128, 512, 512) with
+   900 instances at 512 centers, with the same numbers and the same K1
+   check; (d) the headline volume with content-free heads (the device
+   ceiling without content).
 
 Each phase prints its seconds. The line before the last is the kernel table (JSON); the last line is
 ``{"ok": true, "device": {...}}``.
@@ -184,20 +202,27 @@ def fail(msg):
     sys.exit(1)
 
 
-def orthoplane_group_shapes():
-    """The grouping kernel's shape on each axis of the orthoplane main
-    path, as the engine derives it from ORTHO_SHAPE: slices padded to the
-    padding factor (128), the automatic block size for that slice shape
-    (median kernel 3), the center grid at a quarter of the slice."""
+def axis_block(shape, axis, padding_factor=128):
+    """(block size, padded slice shape) that the engine derives for the
+    slices of ``axis`` of a volume of ``shape``: slices padded to the
+    padding factor, the automatic block size for that slice shape
+    (median kernel 3)."""
     from empanada_torch.inference.fused import FusedStackEngine
 
     engine = SimpleNamespace(block_size=None, mid=1, mesh=None)
+    padded = tuple(-(-side // padding_factor) * padding_factor
+                   for i, side in enumerate(shape) if i != axis)
+    return FusedStackEngine._resolve_block(engine, padded,
+                                           shape[axis]), padded
+
+
+def orthoplane_group_shapes():
+    """The grouping kernel's shape on each axis of the orthoplane main
+    path, as the engine derives it from ORTHO_SHAPE (``axis_block``), the
+    center grid at a quarter of the slice."""
     shapes = {}
     for axis, name in enumerate(AXES):
-        ph, pw = (-(-side // 128) * 128
-                  for i, side in enumerate(ORTHO_SHAPE) if i != axis)
-        b = FusedStackEngine._resolve_block(engine, (ph, pw),
-                                            ORTHO_SHAPE[axis])
+        b, (ph, pw) = axis_block(ORTHO_SHAPE, axis)
         shapes[name] = (b, ph // 4, pw // 4, 256, 4.0, (_MIX * 8)[:b])
     return shapes
 
@@ -225,14 +250,15 @@ def device_us(event):
                    getattr(event, "self_cuda_time_total", 0))
 
 
-def device_ms(fn, reps, kernel=None):
+def device_ms(fn, reps, kernel=None, whole=True):
     """Mean device milliseconds a call of fn() over reps back-to-back
     calls: the self device time that torch.profiler records for the
     kernels whose name contains ``kernel`` (every device event when None),
     divided by reps. The profiler can lose device records: a trace
     that does not hold all reps launches of ``kernel`` is taken again,
-    up to 3 times. Fails when no trace is whole, or when the profiler
-    records no device time."""
+    up to 3 times. Fails when no trace is whole (with ``whole=False``:
+    the last trace's mean over the launches it holds, said so), or when
+    the profiler records no device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -257,8 +283,12 @@ def device_ms(fn, reps, kernel=None):
         print(f"profiler counted {count} launches of {kernel}, not {reps}: "
               f"tracing again")
     else:
-        fail(f"profiler counted {count} launches of {kernel}, not {reps}, "
-             f"in 3 traces")
+        if whole or count <= 0:
+            fail(f"profiler counted {count} launches of {kernel}, not "
+                 f"{reps}, in 3 traces")
+        print(f"device time of {kernel}: the mean over the {count} "
+              f"launches of {reps} that the last trace holds")
+        reps = count
     if total <= 0:
         fail(f"torch.profiler recorded no device time for "
              f"{kernel or 'the call'}")
@@ -376,11 +406,12 @@ def group_check(c, v, o, step):
             int((got.long() - want.long()).abs().max()))
 
 
-def group_timing(c, v, o, step):
+def group_timing(c, v, o, step, whole=True):
     """One input set's numbers: device ms of the kernel (torch.profiler,
-    200 launches), the wrapper's CUDA-event ms, the plain version's and
-    the library yardstick's device ms, the bounds, and the tile counters
-    with the time their kept pairs would take at the peak rate."""
+    200 launches; ``whole`` as in device_ms), the wrapper's CUDA-event
+    ms, the plain version's and the library yardstick's device ms, the
+    bounds, and the tile counters with the time their kept pairs would
+    take at the peak rate."""
     import torch
 
     from empanada_torch.ops import group
@@ -401,7 +432,7 @@ def group_timing(c, v, o, step):
 
     reps, slow_reps = 200, max(3, 20 * 128 * 128 // (h * w))
     name = "group_pixels_kernel"
-    row = {"ms": device_ms(kernel, reps, name)}
+    row = {"ms": device_ms(kernel, reps, name, whole)}
     row["wrapper_ms"] = cuda_ms(kernel, reps)
     row["plain_ms"] = device_ms(
         lambda: group.group_pixels_plain(c, v, o, step), slow_reps)
@@ -842,14 +873,16 @@ class AxisProbe:
 
 
 def warm_axes(model, vol, kwargs, label):
-    """A short stack of each axis's slices (same slice shape and block
-    size as the axis gives the engine) through run_inference3d."""
+    """One block of each axis's slices (same slice shape and block size
+    as the axis gives the engine: its padded slice, the automatic block
+    size) through run_inference3d in stack mode."""
     import torch
 
     from empanada_torch.cli.infer3d import run_inference3d
 
     t0 = time.time()
-    warm = [GROUP_SHAPES[name][0] for name in AXES]
+    warm = [axis_block(vol.shape, axis, kwargs.get("padding_factor", 128))[0]
+            for axis in range(3)]
     for axis, n_warm in enumerate(warm):
         head = np.ascontiguousarray(np.moveaxis(vol, axis, 0)[:n_warm])
         run_inference3d(model, head, **dict(kwargs, mode="stack",
@@ -3281,6 +3314,257 @@ def phase_resident(vol, tmp):
             "resident_command_line": cli_launches}
 
 
+class BlockTape:
+    """While entered, each call of ``FusedStackEngine.infer_blocks`` is
+    one axis: the blocks it yields are kept in ``blocks[axis]``, and each
+    grouping call of its blocks in ``groups[axis]`` as (centers, valid
+    mask, offsets, step, the ids of the main path's own launch), and
+    the engine in ``engine``. Given
+    ``replay`` (an earlier tape), infer_blocks yields that tape's blocks
+    and runs nothing on the device: the host half runs again on the same
+    device outputs."""
+
+    def __init__(self, replay=None):
+        self.replay = replay
+        self.blocks, self.groups = [], []
+
+    def __enter__(self):
+        import torch
+
+        from empanada_torch.inference import fused
+
+        self.saved = (fused.FusedStackEngine.infer_blocks, fused.group_pixels)
+        orig_blocks, orig_group = self.saved
+
+        def infer_blocks(engine, *args, **kwargs):
+            self.engine = engine
+            axis = len(self.blocks)
+            self.blocks.append([])
+            self.groups.append([])
+            source = (self.replay.blocks[axis] if self.replay is not None
+                      else orig_blocks(engine, *args, **kwargs))
+            for item in source:
+                self.blocks[axis].append(item)
+                yield item
+
+        def group_pixels(centers, valid, offsets, step=1.0):
+            ids = orig_group(centers, valid, offsets, step=step)
+            self.groups[-1].append((centers.to(torch.int32).clone(),
+                                    valid.clone(), offsets.float().clone(),
+                                    float(step), ids))
+            return ids
+
+        fused.FusedStackEngine.infer_blocks = infer_blocks
+        fused.group_pixels = group_pixels
+        return self
+
+    def __exit__(self, *exc):
+        from empanada_torch.inference import fused
+
+        fused.FusedStackEngine.infer_blocks, fused.group_pixels = self.saved
+
+
+def bench_orthoplane(model, vol, n_gt, kwargs, label, resident=False,
+                     content=True):
+    """counted_orthoplane with the host core's counts set to 0 just
+    before (a run with ``content`` must call it; one without may find
+    nothing to call it for), then per axis instances matched a slice and
+    overflow slices, and the consensus against ``n_gt`` ground-truth
+    instances. Returns (result, seconds, K1 launches per axis, stats)."""
+    from empanada_torch.core import native
+
+    native.reset_calls()
+    result, seconds, k1, stats = counted_orthoplane(
+        model, vol, kwargs, label, resident)
+    if content:
+        host_path_ran(label, HOST_REQUIRED + ("kway_vote",))
+    elif native.get_lib() is None:
+        fail(f"the {label} path ran with the numpy host half")
+    per_slice = " / ".join(
+        f"{ax['instances_matched'] / ax['slices']:.2f}"
+        for ax in (stats["axes"][a] for a in AXES))
+    overflow = {a: stats["axes"][a]["overflow_slices"] for a in AXES}
+    print(f"{label}: instances matched a slice xy / xz / yz {per_slice}; "
+          f"overflow slices {overflow}; consensus "
+          f"{stats['consensus_seconds']:.3f} s, {len(result[1].instances)} "
+          f"3D instances against {n_gt} in the ground truth")
+    return result, seconds, k1, stats
+
+
+def check_tape_groups(tape, label):
+    """The main path's own K1 ids on every block of every axis against
+    group_pixels_plain on the same centers, valid mask and offsets;
+    returns the xy block with the most valid centers (for timing)."""
+    import torch
+
+    from empanada_torch.ops import group
+
+    busiest = None
+    for a, name in enumerate(AXES):
+        calls = tape.groups[a]
+        valid = [int(v.sum(dim=1).max()) for _, v, _, _, _ in calls]
+        for i, (c, v, o, step, ids) in enumerate(calls):
+            plain = group.group_pixels_plain(c, v, o, step)
+            if not torch.equal(plain, ids):
+                fail(f"{label} {name} block {i}: K1's ids differ from "
+                     f"group_pixels_plain's in "
+                     f"{int((plain != ids).sum())} pixels")
+        k = calls[0][0].shape[1]
+        print(f"{label} {name}: K1 ids == group_pixels_plain on all "
+              f"{len(calls)} blocks ({tuple(calls[0][2].shape[:3])} grid, "
+              f"K {k}); valid centers a slice at most {max(valid)} of {k} "
+              f"slots")
+        if a == 0:
+            busiest = calls[int(np.argmax(valid))]
+    return busiest
+
+
+def time_real_block(label, block):
+    """K1 against its plain version and a library call on one recorded
+    block with the centers of a real forward (the kernel's device time
+    over the launches the profiler kept: a measurement beside the
+    main path, which no lost record should end)."""
+    c, v, o, step, _ = block
+    row = group_timing(c, v, o, step, whole=False)
+    b, h, w, _ = o.shape
+    print(f"{label} K1 on a real xy block (B={b}, {h}x{w}, K="
+          f"{c.shape[1]}, {int(v.sum())} valid, step {step:g}): device "
+          f"{row['ms']:.5f} ms; wrapper {row['wrapper_ms']:.5f} ms, plain "
+          f"{row['plain_ms']:.4f} ms, cdist+argmin {row['library_ms']:.4f} "
+          f"ms; bound {row['bound_ms']:.6f} ms ({row['bound_by']}), "
+          f"exhaustive scan bound {row['scan_bound_ms']:.6f} ms, kept pairs "
+          f"{row['kept_pairs_ms']:.6f} ms")
+    return {k: row[k] for k in ("ms", "wrapper_ms", "plain_ms", "library_ms",
+                                "bound_ms", "bound_by", "scan_bound_ms")}
+
+
+def phase_bench(tmp):
+    """Phase 16: the bench MitoNet (the seeded full-width backbone with the
+    committed ridge-fitted heads) on the bench volumes: (a) the headline
+    orthoplane volume, streaming, with every block's K1 ids held against
+    the plain version; the host half again with the numpy host half on
+    the same device outputs, consensus equal RLE for RLE; ``resident=
+    True``, consensus equal; (b) that consensus scored against its
+    ground truth (semantic IoU >= 0.5); (c) the product-density slab;
+    (d) the headline volume with content-free heads. Returns K1 launches
+    by path, and K1's timings on the busiest recorded xy block of (a)
+    and of (c)."""
+    import torch
+
+    from empanada_torch import bench_heads
+    from empanada_torch.cli.infer3d import run_inference3d
+    from empanada_torch.core import native
+    from empanada_torch.data import VolumeDataset
+    from empanada_torch.evaluation.evaluator import default_evaluator
+    from empanada_torch.ops import group
+
+    t0 = time.time()
+    model = bench_heads.splice(bench_heads.bench_model(device="cuda"))
+    print(f"bench MitoNet: seeded backbone with the heads of "
+          f"{bench_heads.NPZ.name} (fingerprint checked) in "
+          f"{time.time() - t0:.3f} s; card {card_name_and_limit()}")
+    t0 = time.time()
+    vol, gt = bench_heads.headline_volume()
+    n_gt = int(gt.max())
+    print(f"headline volume {vol.shape}, {n_gt} instances, made in "
+          f"{time.time() - t0:.3f} s")
+    kwargs = dict(bench_heads.HEADLINE_SETTINGS, device="cuda")
+    warm_axes(model, vol, kwargs, "bench headline")
+
+    # (a) streaming, taped; the numpy host half on the tape; resident
+    with BlockTape() as tape:
+        result, seconds, k1, stats = bench_orthoplane(
+            model, vol, n_gt, kwargs, "bench headline")
+    busiest = check_tape_groups(tape, "bench headline")
+    native.reset_calls()
+    group.reset_launches()
+    t0 = time.time()
+    with BlockTape(replay=tape), native.numpy_host_half():
+        plain = run_inference3d(model, vol, progress=False, **kwargs)
+    plain_s = time.time() - t0
+    if any(native.CALLS.values()) or group.LAUNCHES["group_pixels"]:
+        fail(f"bench headline replay: host core calls {native.CALLS}, K1 "
+             f"launches {group.LAUNCHES}")
+    if not same_instances(result[1].instances, plain[1].instances):
+        fail("bench headline: the consensus with the numpy host half "
+             "differs from the C++ host core's on the same device outputs")
+    print(f"bench headline: numpy host half on the same device outputs "
+          f"{plain_s:.3f} s (no device work), consensus == the C++ host "
+          f"core's, RLE for RLE ({len(plain[1].instances)} instances)")
+    del tape
+    resident, resident_s, resident_k1, _ = bench_orthoplane(
+        model, vol, n_gt, kwargs, "bench headline resident", resident=True)
+    if not same_instances(result[1].instances, resident[1].instances):
+        fail("bench headline: resident consensus differs from streaming's")
+    print(f"bench headline: resident == streaming, RLE for RLE; "
+          f"{sum(vol.shape) / resident_s:.2f} against "
+          f"{sum(vol.shape) / seconds:.2f} slices/s")
+
+    # (b) accuracy against the ground truth
+    t0 = time.time()
+    pred_path = Path(tmp) / "bench_pred.json"
+    result[1].write_to_json(str(pred_path))
+    scores = default_evaluator()(
+        gt_json(Path(tmp) / "bench_gt.json", gt), str(pred_path))
+    print(f"bench headline accuracy against the ground truth "
+          f"({time.time() - t0:.3f} s): semantic IoU {scores['iou']:.4f}, "
+          f"F1@0.5 {scores['f1_50']:.4f}, PQ {scores['pq']:.4f}, F1@0.75 "
+          f"{scores['f1_75']:.4f}, precision@0.5 "
+          f"{scores['precision_50']:.4f}, recall@0.5 "
+          f"{scores['recall_50']:.4f}")
+    if not scores["iou"] >= 0.5:
+        fail(f"bench headline: semantic IoU {scores['iou']:.4f} < 0.5")
+    timings = {"headline_xy_block": time_real_block("bench headline",
+                                                    busiest)}
+    del vol, gt, busiest
+
+    # (c) the product-density slab
+    t0 = time.time()
+    slab, slab_gt = bench_heads.slab_volume()
+    n_slab_gt = int(slab_gt.max())
+    del slab_gt
+    print(f"slab volume {slab.shape}, {n_slab_gt} instances, made in "
+          f"{time.time() - t0:.3f} s")
+    slab_kw = dict(bench_heads.SLAB_SETTINGS, device="cuda")
+    warm_axes(model, slab, slab_kw, "bench slab")
+    with BlockTape() as tape:
+        _, _, slab_k1, slab_stats = bench_orthoplane(
+            model, slab, n_slab_gt, slab_kw, "bench slab")
+    busiest = check_tape_groups(tape, "bench slab")
+    # the same engine over each axis alone (no host half): beside the
+    # forward seconds inside the run, what the host threads cost it
+    alone = []
+    for axis, name in enumerate(AXES):
+        t0 = time.time()
+        for _, _, packed in tape.engine.infer_blocks(
+                VolumeDataset(slab, axis=axis)):
+            np.asarray(packed)
+        torch.cuda.synchronize()
+        alone.append(f"{slab_stats['axes'][name]['forward_seconds']:.3f} / "
+                     f"{time.time() - t0:.3f}")
+    print(f"bench slab forward inside the run / engine alone, s, xy; xz; "
+          f"yz: {'; '.join(alone)}")
+    timings["slab_xy_block"] = time_real_block("bench slab", busiest)
+    del tape, busiest, slab
+
+    # (d) the content-free ceiling on the headline volume
+    vol, _ = bench_heads.headline_volume()
+    model.load_state_dict(bench_heads.content_free(model.state_dict()))
+    _, free_s, free_k1, _ = bench_orthoplane(
+        model, vol, n_gt, kwargs, "bench headline content-free",
+        content=False)
+    print(f"bench headline: content-free {sum(vol.shape) / free_s:.2f} "
+          f"slices/s against {sum(vol.shape) / seconds:.2f} with content")
+    del model
+    torch.cuda.empty_cache()
+    return {"bench_headline": sum(k1.values()),
+            "bench_headline_by_axis": k1,
+            "bench_headline_resident": sum(resident_k1.values()),
+            "bench_slab": sum(slab_k1.values()),
+            "bench_slab_by_axis": slab_k1,
+            "bench_content_free": sum(free_k1.values())}, timings
+
+
 PORT = None
 
 
@@ -3413,6 +3697,11 @@ def main():
         row["launches_by_path"].update(timed_phase(
             "15 resident and exported program", phase_resident, ortho_vol,
             tmp))
+        bench_launches, bench_timings = timed_phase(
+            "16 bench MitoNet", phase_bench, tmp)
+    row["launches_by_path"].update(bench_launches)
+    for shape, timing in bench_timings.items():
+        row["shapes"][shape] = {"real": timing}
     finish(row)
 
 

@@ -8,6 +8,8 @@ COMMANDS = {
     "finetune": "empanada_torch.cli.finetune",
     "export": "empanada_torch.cli.export",
     "evaluate3d": "empanada_torch.cli.evaluate3d",
+    "evaluate3d-bc": "empanada_torch.cli.evaluate3d_bc",
+    # the port's earlier name of evaluate3d-bc, kept as an alias
     "evaluate3d_bc": "empanada_torch.cli.evaluate3d_bc",
     "curate": "empanada_torch.cli.curate",
 }

@@ -371,7 +371,8 @@ def test_dispatcher(monkeypatch, capsys, tmp_path):
 
     assert list(dispatcher.COMMANDS) == ["infer3d", "train", "finetune",
                                          "export", "evaluate3d",
-                                         "evaluate3d_bc", "curate"]
+                                         "evaluate3d-bc", "evaluate3d_bc",
+                                         "curate"]
     for argv, code in ((["empanada_torch"], 2),
                        (["empanada_torch", "--help"], 0),
                        (["empanada_torch", "nosuch"], 2)):

@@ -72,6 +72,10 @@ PARALLEL_MODULES = ("empanada_torch.parallel",
                     "empanada_torch.parallel.multihost")
 
 
+# the bench MitoNet's module
+BENCH_MODULES = ("empanada_torch.bench_heads",)
+
+
 def _port_sources():
     return sorted((ROOT / "empanada_torch").rglob("*.py")) + [
         ROOT / "chip_smoke.py"]
@@ -83,7 +87,7 @@ def test_every_module_imports_with_jax_blocked():
     assert "empanada_torch.inference.fused" in names
     assert set(NEW_MODULES + HOST_CORE_MODULES + TRAIN_MODULES
                + EVAL_MODULES + ARTIFACT_MODULES
-               + PARALLEL_MODULES) <= set(names)
+               + PARALLEL_MODULES + BENCH_MODULES) <= set(names)
     blocked = BLOCKED + ("yaml", "cv2", "mlflow", "msgpack")
     code = (
         "import sys\n"
@@ -114,6 +118,21 @@ def test_parallel_imports_nothing_of_jax():
         "    importlib.import_module(name)\n"
         "from empanada_torch.parallel.multihost import "
         "multihost_run_inference3d\n"
+        f"bad = [m for m in sys.modules if m.split('.')[0] in {BLOCKED!r}]\n"
+        "assert not bad, bad\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_bench_heads_imports_nothing_of_jax():
+    """The bench MitoNet's module (fit, splice, content-free heads, the
+    bench volumes) and everything it reaches import no jax, flax, optax
+    or empanada_tpu."""
+    code = (
+        "import sys\n"
+        "from empanada_torch import bench_heads\n"
+        "from empanada_torch.bench_heads import fit, splice, content_free\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {BLOCKED!r}]\n"
         "assert not bad, bad\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -257,12 +276,48 @@ def test_dispatcher_lists_the_training_commands():
                           timeout=120)
     assert proc.returncode == 0
     commands = {"infer3d", "train", "finetune", "export", "evaluate3d",
-                "evaluate3d_bc", "curate"}
+                "evaluate3d-bc", "evaluate3d_bc", "curate"}
     for command in commands:
         assert command in proc.stdout
     from empanada_torch.__main__ import COMMANDS
 
     assert set(COMMANDS) == commands
+
+
+def test_dispatcher_holds_every_command_of_the_jax_package():
+    """Every command name of the JAX package's dispatcher reaches the
+    port's module of the same name."""
+    pytest.importorskip("jax", reason="needs the JAX package's dispatcher")
+    from empanada_torch.__main__ import COMMANDS
+    from empanada_tpu.__main__ import COMMANDS as JAX_COMMANDS
+
+    for name, module in JAX_COMMANDS.items():
+        assert COMMANDS[name] == module.replace("empanada_tpu.",
+                                                "empanada_torch.", 1), name
+
+
+@pytest.mark.parametrize("name", ["evaluate3d-bc", "evaluate3d_bc"])
+def test_both_bc_evaluation_names_reach_the_port_command(name):
+    """``evaluate3d-bc`` (the JAX package's name) and ``evaluate3d_bc``
+    (the port's earlier one) dispatch to ``empanada_torch.cli.
+    evaluate3d_bc``."""
+    code = (
+        "import sys\n"
+        "import empanada_torch.cli.evaluate3d_bc as cmd\n"
+        "seen = []\n"
+        "cmd.main = seen.append\n"
+        f"sys.argv = ['empanada_torch', {name!r}, 'a.yaml', 'v.zarr']\n"
+        "from empanada_torch.__main__ import main\n"
+        "main()\n"
+        "assert seen == [['a.yaml', 'v.zarr']], seen\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    help_run = subprocess.run(
+        [sys.executable, "-m", "empanada_torch", name, "--help"], cwd=ROOT,
+        capture_output=True, text=True, timeout=120)
+    assert help_run.returncode == 0, help_run.stderr
+    assert "-seed-thres" in help_run.stdout
 
 
 def test_evaluation_and_bc_entry_points_raise_without_cuda(monkeypatch,
