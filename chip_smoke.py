@@ -128,7 +128,9 @@ failure exits non-zero before the final line):
    card against the eager forward (TF32 off, within 1e-4 of max
    |value|), export seconds and file size; (f) ``block_cost_analysis``
    of the xy block beside its engine-alone time and the share of the
-   float32 peak;
+   float32 peak, then the same in bfloat16 against the bfloat16 peak,
+   and the grouped 3x3 convolutions' share of an xy block forward in
+   each dtype;
 16. the bench MitoNet (``empanada_torch.bench_heads``: the seeded
    full-width backbone with the committed ridge-fitted heads, whose
    backbone fingerprint is checked) on the bench volumes: (a) the
@@ -144,9 +146,17 @@ failure exits non-zero before the final line):
    against its ground truth with the port's evaluator (semantic IoU,
    F1@0.5, PQ; fails below 0.5 semantic IoU); K1 timed on the busiest
    recorded xy block; (c) the product-density slab (128, 512, 512) with
-   900 instances at 512 centers, with the same numbers and the same K1
-   check; (d) the headline volume with content-free heads (the device
-   ceiling without content).
+   900 instances at 512 centers, with the same numbers, the same K1
+   check and the same scoring; (d) the headline volume with content-free
+   heads (the device ceiling without content); the same in bfloat16
+   (the model built with ``dtype="bfloat16"``, as the MitoNet recipe's
+   ``MODEL.dtype``): the headline and the slab with every block's K1
+   ids against the plain version and both scored (fails below 0.5
+   semantic IoU), the content-free ceiling, each beside float32's
+   numbers;
+17. the benchmark entry point: ``python -m empanada_torch.bench`` as a
+   subprocess, its one JSON line parsed and printed, its keys, dtype,
+   modes and IoU gate checked (a failure fails the run).
 
 Each phase prints its seconds. The line before the last is the kernel table (JSON); the last line is
 ``{"ok": true, "device": {...}}``.
@@ -1825,10 +1835,13 @@ WATERSHED_KW = dict(thres1=0.7, thres2=0.4, thres3=0.3, seed_thres=8,
 
 
 def recipe_model(path, arch=None):
-    """(arch, MODEL kwargs) of a recipe, its BASE chain resolved."""
+    """(arch, MODEL kwargs) of a recipe, its BASE chain resolved, without
+    its ``dtype``: these phases hold the card against the CPU in float32,
+    the parity mode (the recipes' bfloat16 runs in phases 15-17)."""
     from empanada_torch.config import load_config
 
     cfg = dict(load_config(path)["MODEL"])
+    cfg.pop("dtype", None)
     recipe_arch = cfg.pop("arch")
     return arch or recipe_arch, cfg
 
@@ -3234,6 +3247,7 @@ def phase_resident(vol, tmp):
           f"{flops / (block_ms / 1e3) / peak:.4f} of the 67 TFLOP/s "
           f"float32 peak (NVIDIA H100 SXM data sheet; TF32 off); card "
           f"{card_name_and_limit()}")
+    block_share_bf16(model, vol_dev, xy_block, block_ms)
 
     # (c) the command line on a .npy crop, resident beside streaming
     tmp = Path(tmp) / "resident"
@@ -3312,6 +3326,92 @@ def phase_resident(vol, tmp):
     return {"resident_orthoplane": sum(resident_k1.values()),
             "resident_orthoplane_by_axis": resident_k1,
             "resident_command_line": cli_launches}
+
+
+def grouped_conv_ms(model, x, reps=3):
+    """(ms of the grouped 3x3 convolutions, ms of the whole forward,
+    grouped calls) of one eval forward of ``model`` on ``x``, the
+    fastest of ``reps``: CUDA events around the forward and around each
+    convolution with 1 < groups < its input channels (RegNetY's group
+    width 72)."""
+    import torch
+
+    from empanada_torch.export import FORWARD_KW
+
+    convs = [m for m in model.modules() if isinstance(m, torch.nn.Conv2d)
+             and 1 < m.groups < m.in_channels]
+    events = []
+
+    def pre(_m, _args):
+        events.append([torch.cuda.Event(enable_timing=True)])
+        events[-1][0].record()
+
+    def post(_m, _args, _out):
+        events[-1].append(torch.cuda.Event(enable_timing=True))
+        events[-1][1].record()
+
+    handles = [h for m in convs for h in (
+        m.register_forward_pre_hook(pre), m.register_forward_hook(post))]
+    best = None
+    try:
+        for _ in range(reps):
+            events.clear()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            with torch.inference_mode():
+                start.record()
+                model(x, **FORWARD_KW)
+                end.record()
+            torch.cuda.synchronize()
+            row = (sum(a.elapsed_time(b) for a, b in events),
+                   start.elapsed_time(end), len(events))
+            if best is None or row[1] < best[1]:
+                best = row
+    finally:
+        for h in handles:
+            h.remove()
+    return best
+
+
+def block_share_bf16(model32, vol_dev, xy_block, block_ms):
+    """Phase 15 (f) in bfloat16: the same weights computing in bfloat16
+    (``create_model(dtype="bfloat16")``, as the MitoNet recipe's
+    ``MODEL.dtype``), the xy pass engine alone after a warm pass, its
+    block's FLOPs over its time against the 989 TFLOP/s bfloat16 peak,
+    beside float32's ``block_ms``; then the grouped 3x3 convolutions'
+    share of one xy block forward in each dtype."""
+    import torch
+
+    from empanada_torch.models import create_model
+
+    cfg = dict(MITONET)
+    model16 = create_model(cfg.pop("arch"), device="cuda", dtype="bfloat16",
+                           **cfg)
+    model16.load_state_dict(model32.state_dict())
+    engine = make_engine(model16)
+    collect_blocks(engine.infer_blocks_resident(vol_dev))
+    t0 = time.time()
+    _, blocks, _ = collect_blocks(engine.infer_blocks_resident(vol_dev))
+    ms16 = (time.time() - t0) / blocks * 1e3
+    flops = engine.block_cost_analysis()["flops"]
+    peak = 989e12  # H100 SXM bfloat16 dense, NVIDIA data sheet
+    print(f"xy block {xy_block} in bfloat16: block_cost_analysis {flops} "
+          f"FLOPs; engine alone {ms16:.3f} ms a block (float32 "
+          f"{block_ms:.3f} ms, {block_ms / ms16:.2f}x) -> "
+          f"{flops / (ms16 / 1e3) / 1e12:.2f} TFLOP/s, "
+          f"{flops / (ms16 / 1e3) / peak:.4f} of the 989 TFLOP/s bfloat16 "
+          f"peak (NVIDIA H100 SXM data sheet); card {card_name_and_limit()}")
+    b, h, w = xy_block
+    x = torch.from_numpy(np.random.default_rng(16).normal(
+        0, 1, (b, 1, h, w)).astype(np.float32)).cuda()
+    for label, m in (("float32", model32), ("bfloat16", model16)):
+        grouped, total, calls = grouped_conv_ms(m, x)
+        print(f"xy block forward {tuple(x.shape)} in {label}: grouped 3x3 "
+              f"convolutions (group width 72, cuDNN) {grouped:.3f} ms in "
+              f"{calls} calls of a {total:.3f} ms forward "
+              f"({grouped / total:.3f})")
+    del model16, engine
+    torch.cuda.empty_cache()
 
 
 class BlockTape:
@@ -3438,24 +3538,68 @@ def time_real_block(label, block):
                                 "bound_ms", "bound_by", "scan_bound_ms")}
 
 
+def bench_accuracy(label, result, gt, gt_path, tmp):
+    """The port's evaluator on ``result``'s consensus against the label
+    volume ``gt`` (its tracker JSON written once, at ``gt_path``); fails
+    below semantic IoU 0.5, the bench heads' fit criterion. Returns the
+    scores."""
+    from empanada_torch.evaluation.evaluator import default_evaluator
+
+    t0 = time.time()
+    if not Path(gt_path).exists():
+        gt_json(gt_path, gt)
+    pred_path = Path(tmp) / f"{label.replace(' ', '_')}_pred.json"
+    result[1].write_to_json(str(pred_path))
+    scores = default_evaluator()(str(gt_path), str(pred_path))
+    print(f"{label} accuracy against the ground truth "
+          f"({time.time() - t0:.3f} s): semantic IoU {scores['iou']:.4f}, "
+          f"F1@0.5 {scores['f1_50']:.4f}, PQ {scores['pq']:.4f}, F1@0.75 "
+          f"{scores['f1_75']:.4f}, precision@0.5 "
+          f"{scores['precision_50']:.4f}, recall@0.5 "
+          f"{scores['recall_50']:.4f}")
+    if not scores["iou"] >= 0.5:
+        fail(f"{label}: semantic IoU {scores['iou']:.4f} < 0.5")
+    return scores
+
+
+def bench_taped(model, vol, n_gt, kwargs, label):
+    """Warm the volume's slice shapes, then the taped streaming
+    orthoplane run with every block's K1 ids held against the plain
+    version. Returns (result, seconds, K1 launches per axis, stats, the
+    tape, the busiest xy block)."""
+    warm_axes(model, vol, kwargs, label)
+    with BlockTape() as tape:
+        result, seconds, k1, stats = bench_orthoplane(
+            model, vol, n_gt, kwargs, label)
+    busiest = check_tape_groups(tape, label)
+    return result, seconds, k1, stats, tape, busiest
+
+
+def bench_summary(vol, result, seconds, scores):
+    return {"slices_per_sec": sum(vol.shape) / seconds,
+            "instances": len(result[1].instances),
+            "iou": scores["iou"], "f1_50": scores["f1_50"],
+            "pq": scores["pq"]}
+
+
 def phase_bench(tmp):
-    """Phase 16: the bench MitoNet (the seeded full-width backbone with the
-    committed ridge-fitted heads) on the bench volumes: (a) the headline
-    orthoplane volume, streaming, with every block's K1 ids held against
-    the plain version; the host half again with the numpy host half on
-    the same device outputs, consensus equal RLE for RLE; ``resident=
-    True``, consensus equal; (b) that consensus scored against its
-    ground truth (semantic IoU >= 0.5); (c) the product-density slab;
-    (d) the headline volume with content-free heads. Returns K1 launches
-    by path, and K1's timings on the busiest recorded xy block of (a)
-    and of (c)."""
+    """Phase 16 (float32, the parity mode): the bench MitoNet (the seeded
+    full-width backbone with the committed ridge-fitted heads) on the
+    bench volumes: (a) the headline orthoplane volume, streaming, with
+    every block's K1 ids held against the plain version; the host half
+    again with the numpy host half on the same device outputs, consensus
+    equal RLE for RLE; ``resident=True``, consensus equal; (b) that
+    consensus scored against its ground truth (semantic IoU >= 0.5);
+    (c) the product-density slab, also scored; (d) the headline volume
+    with content-free heads. Returns K1 launches by path, K1's timings
+    on the busiest recorded xy block of (a) and of (c), and a summary
+    for the bfloat16 run to print beside its own."""
     import torch
 
     from empanada_torch import bench_heads
     from empanada_torch.cli.infer3d import run_inference3d
     from empanada_torch.core import native
     from empanada_torch.data import VolumeDataset
-    from empanada_torch.evaluation.evaluator import default_evaluator
     from empanada_torch.ops import group
 
     t0 = time.time()
@@ -3469,13 +3613,10 @@ def phase_bench(tmp):
     print(f"headline volume {vol.shape}, {n_gt} instances, made in "
           f"{time.time() - t0:.3f} s")
     kwargs = dict(bench_heads.HEADLINE_SETTINGS, device="cuda")
-    warm_axes(model, vol, kwargs, "bench headline")
 
     # (a) streaming, taped; the numpy host half on the tape; resident
-    with BlockTape() as tape:
-        result, seconds, k1, stats = bench_orthoplane(
-            model, vol, n_gt, kwargs, "bench headline")
-    busiest = check_tape_groups(tape, "bench headline")
+    result, seconds, k1, _, tape, busiest = bench_taped(
+        model, vol, n_gt, kwargs, "bench headline")
     native.reset_calls()
     group.reset_launches()
     t0 = time.time()
@@ -3501,19 +3642,9 @@ def phase_bench(tmp):
           f"{sum(vol.shape) / seconds:.2f} slices/s")
 
     # (b) accuracy against the ground truth
-    t0 = time.time()
-    pred_path = Path(tmp) / "bench_pred.json"
-    result[1].write_to_json(str(pred_path))
-    scores = default_evaluator()(
-        gt_json(Path(tmp) / "bench_gt.json", gt), str(pred_path))
-    print(f"bench headline accuracy against the ground truth "
-          f"({time.time() - t0:.3f} s): semantic IoU {scores['iou']:.4f}, "
-          f"F1@0.5 {scores['f1_50']:.4f}, PQ {scores['pq']:.4f}, F1@0.75 "
-          f"{scores['f1_75']:.4f}, precision@0.5 "
-          f"{scores['precision_50']:.4f}, recall@0.5 "
-          f"{scores['recall_50']:.4f}")
-    if not scores["iou"] >= 0.5:
-        fail(f"bench headline: semantic IoU {scores['iou']:.4f} < 0.5")
+    scores = bench_accuracy("bench headline", result, gt,
+                            Path(tmp) / "bench_gt.json", tmp)
+    summary = {"headline": bench_summary(vol, result, seconds, scores)}
     timings = {"headline_xy_block": time_real_block("bench headline",
                                                     busiest)}
     del vol, gt, busiest
@@ -3522,15 +3653,11 @@ def phase_bench(tmp):
     t0 = time.time()
     slab, slab_gt = bench_heads.slab_volume()
     n_slab_gt = int(slab_gt.max())
-    del slab_gt
     print(f"slab volume {slab.shape}, {n_slab_gt} instances, made in "
           f"{time.time() - t0:.3f} s")
     slab_kw = dict(bench_heads.SLAB_SETTINGS, device="cuda")
-    warm_axes(model, slab, slab_kw, "bench slab")
-    with BlockTape() as tape:
-        _, _, slab_k1, slab_stats = bench_orthoplane(
-            model, slab, n_slab_gt, slab_kw, "bench slab")
-    busiest = check_tape_groups(tape, "bench slab")
+    slab_result, slab_s, slab_k1, slab_stats, tape, busiest = bench_taped(
+        model, slab, n_slab_gt, slab_kw, "bench slab")
     # the same engine over each axis alone (no host half): beside the
     # forward seconds inside the run, what the host threads cost it
     alone = []
@@ -3545,7 +3672,11 @@ def phase_bench(tmp):
     print(f"bench slab forward inside the run / engine alone, s, xy; xz; "
           f"yz: {'; '.join(alone)}")
     timings["slab_xy_block"] = time_real_block("bench slab", busiest)
-    del tape, busiest, slab
+    del tape, busiest
+    scores = bench_accuracy("bench slab", slab_result, slab_gt,
+                            Path(tmp) / "bench_slab_gt.json", tmp)
+    summary["slab"] = bench_summary(slab, slab_result, slab_s, scores)
+    del slab, slab_gt, slab_result
 
     # (d) the content-free ceiling on the headline volume
     vol, _ = bench_heads.headline_volume()
@@ -3555,6 +3686,7 @@ def phase_bench(tmp):
         content=False)
     print(f"bench headline: content-free {sum(vol.shape) / free_s:.2f} "
           f"slices/s against {sum(vol.shape) / seconds:.2f} with content")
+    summary["ceiling"] = sum(vol.shape) / free_s
     del model
     torch.cuda.empty_cache()
     return {"bench_headline": sum(k1.values()),
@@ -3562,7 +3694,116 @@ def phase_bench(tmp):
             "bench_headline_resident": sum(resident_k1.values()),
             "bench_slab": sum(slab_k1.values()),
             "bench_slab_by_axis": slab_k1,
-            "bench_content_free": sum(free_k1.values())}, timings
+            "bench_content_free": sum(free_k1.values())}, timings, summary
+
+
+def phase_bench_bf16(tmp, f32):
+    """Phase 16 in bfloat16 (``MODEL.dtype`` of the MitoNet recipe, as
+    the JAX bench builds its model): the same bench MitoNet computing in
+    bfloat16 on the headline volume and the slab, every block's K1 ids
+    held against the plain version on the same tape (K1 groups float32
+    centers and offsets in either dtype), each consensus scored against
+    its ground truth (fails below semantic IoU 0.5), then the
+    content-free ceiling; each number printed beside phase 16's float32
+    one (``f32``). Returns K1 launches by path."""
+    import torch
+
+    from empanada_torch import bench_heads
+
+    model = bench_heads.splice(bench_heads.bench_model(
+        device="cuda", dtype="bfloat16"))
+    print(f"bench MitoNet in bfloat16: the same weights, compute dtype "
+          f"bfloat16 (batch norm float32); card {card_name_and_limit()}")
+    out, launches = {}, {}
+    for tag, make, settings, gt_name in (
+            ("headline", bench_heads.headline_volume,
+             bench_heads.HEADLINE_SETTINGS, "bench_gt.json"),
+            ("slab", bench_heads.slab_volume, bench_heads.SLAB_SETTINGS,
+             "bench_slab_gt.json")):
+        label = f"bench {tag} bf16"
+        vol, gt = make()
+        result, seconds, k1, _, tape, _ = bench_taped(
+            model, vol, int(gt.max()), dict(settings, device="cuda"), label)
+        del tape
+        scores = bench_accuracy(label, result, gt, Path(tmp) / gt_name, tmp)
+        out[tag] = bench_summary(vol, result, seconds, scores)
+        launches[f"bench_{tag}_bf16"] = sum(k1.values())
+        launches[f"bench_{tag}_bf16_by_axis"] = k1
+        del vol, gt, result
+    vol, gt = bench_heads.headline_volume()
+    model.load_state_dict(bench_heads.content_free(model.state_dict()))
+    _, free_s, free_k1, _ = bench_orthoplane(
+        model, vol, int(gt.max()), dict(bench_heads.HEADLINE_SETTINGS,
+                                        device="cuda"),
+        "bench headline content-free bf16", content=False)
+    launches["bench_content_free_bf16"] = sum(free_k1.values())
+    ceiling = sum(vol.shape) / free_s
+    for tag in ("headline", "slab"):
+        a, b = out[tag], f32[tag]
+        print(f"bench {tag}, bfloat16 beside float32: "
+              f"{a['slices_per_sec']:.2f} / {b['slices_per_sec']:.2f} "
+              f"slices/s; 3D instances "
+              f"{a['instances']} / {b['instances']}; semantic IoU "
+              f"{a['iou']:.4f} / {b['iou']:.4f}, F1@0.5 {a['f1_50']:.4f} / "
+              f"{b['f1_50']:.4f}, PQ {a['pq']:.4f} / {b['pq']:.4f}")
+    print(f"bench headline content-free, bfloat16 beside float32: "
+          f"{ceiling:.2f} / {f32['ceiling']:.2f} slices/s")
+    del model
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_bench_entry():
+    """Phase 17: the port's benchmark entry point, ``python -m
+    empanada_torch.bench``, as a user runs it (a subprocess on this
+    card): its one JSON line parsed, the JAX bench's keys (less those of
+    the JAX package's circumstances) and the port's checked, the bf16
+    model, every stack mode timed, the IoU gate passed. Returns the K1
+    launches of its sections."""
+    root = Path(__file__).resolve().parent
+    t0 = time.time()
+    proc = subprocess.run([sys.executable, "-m", "empanada_torch.bench"],
+                          cwd=root, capture_output=True, text=True,
+                          timeout=900)
+    seconds = time.time() - t0
+    if proc.returncode != 0:
+        fail(f"python -m empanada_torch.bench exited {proc.returncode} "
+             f"after {seconds:.1f} s: {proc.stderr[-3000:]}"
+             f"{proc.stdout[-2000:]}")
+    lines = proc.stdout.strip().splitlines()
+    if len(lines) != 1:
+        fail(f"python -m empanada_torch.bench printed {len(lines)} lines, "
+             f"not one: {proc.stdout[-2000:]}")
+    line = json.loads(lines[0])
+    print(f"python -m empanada_torch.bench: {seconds:.1f} s; its line:")
+    print(lines[0])
+    b = line.get("breakdown", {})
+    want = {"stack_512", "per_mode_slices_per_sec", "orthoplane",
+            "product_density", "flops_per_dispatch", "dispatches",
+            "mfu_end_to_end_lower_bound", "card", "dtype", "iou_gate"}
+    if (line.get("metric") != "mitonet_orthoplane3d_inference_throughput"
+            or line.get("unit") != "slices/s"
+            or not line.get("value", 0) > 0 or set(b) != want):
+        fail(f"the bench's line: metric {line.get('metric')}, unit "
+             f"{line.get('unit')}, value {line.get('value')}, breakdown "
+             f"keys {sorted(b)} (want {sorted(want)})")
+    if b["dtype"] != "bfloat16" or set(b["per_mode_slices_per_sec"]) != {
+            "stream", "resident", "int8", "ceiling"} \
+            or not b["mfu_end_to_end_lower_bound"] > 0 \
+            or b["card"]["name"] != card_name_and_limit().split(",")[0]:
+        fail(f"the bench's line: dtype {b['dtype']}, modes "
+             f"{sorted(b['per_mode_slices_per_sec'])}, mfu "
+             f"{b['mfu_end_to_end_lower_bound']}, card {b['card']}")
+    gate = b["iou_gate"]
+    if not gate["passed"] or min(gate["semantic_iou"].values()) < 0.5:
+        fail(f"the bench's IoU gate: {gate}")
+    print(f"bench line: {line['value']} slices/s (orthoplane, through the "
+          f"zarr fill); stack {b['per_mode_slices_per_sec']}; slab "
+          f"{b['product_density']['slices_per_sec']} slices/s; mfu lower "
+          f"bound {b['mfu_end_to_end_lower_bound']} of 989 TFLOP/s; IoU "
+          f"gate {gate['semantic_iou']} passed; card {b['card']}")
+    return {f"bench_entry_{name}": b[name]["k1_launches"]
+            for name in ("stack_512", "orthoplane", "product_density")}
 
 
 PORT = None
@@ -3697,11 +3938,16 @@ def main():
         row["launches_by_path"].update(timed_phase(
             "15 resident and exported program", phase_resident, ortho_vol,
             tmp))
-        bench_launches, bench_timings = timed_phase(
+        bench_launches, bench_timings, f32_summary = timed_phase(
             "16 bench MitoNet", phase_bench, tmp)
+        bench_launches.update(timed_phase(
+            "16 bench MitoNet in bfloat16", phase_bench_bf16, tmp,
+            f32_summary))
     row["launches_by_path"].update(bench_launches)
     for shape, timing in bench_timings.items():
         row["shapes"][shape] = {"real": timing}
+    row["launches_by_path"].update(timed_phase(
+        "17 bench entry point", phase_bench_entry))
     finish(row)
 
 

@@ -72,13 +72,14 @@ SLAB_SETTINGS = dict(BENCH_SETTINGS, min_size=500, min_span=4,
                      max_centers=512)
 
 
-def bench_model(device=None, seed=0):
+def bench_model(device=None, seed=0, dtype="float32"):
     """The port's seeded full-width MitoNet (PanopticBiFPNPR on
-    regnety_6p4gf, ``init="random"``) on ``device`` (CUDA unless named;
+    regnety_6p4gf, ``init="random"``) computing in ``dtype`` (its float32
+    weights are the same in either) on ``device`` (CUDA unless named;
     raises without a card when none is named)."""
     cfg = dict(BENCH_ARCH)
     return create_model(cfg.pop("arch"), device=device, seed=seed,
-                        init="random", **cfg)
+                        init="random", dtype=dtype, **cfg)
 
 
 def headline_volume():

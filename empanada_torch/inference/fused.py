@@ -214,10 +214,11 @@ class FusedStackEngine:
         return ring.to(self.device)
 
     def _forward(self, batch, render_steps, norms, pad_masks):
-        """(B, ph, pw) host batch -> probabilities (B, C, H, W), centers
-        (B, h4, w4) and offsets (B, h4, w4, 2) on the engine's device:
-        each replica runs its contiguous chunk on its own device, and the
-        chunks are gathered onto the first."""
+        """(B, ph, pw) host batch -> float32 probabilities (B, C, H, W),
+        centers (B, h4, w4) and offsets (B, h4, w4, 2) on the engine's
+        device. The model takes float32 images and computes in its own
+        dtype. Each replica runs its contiguous chunk on its own device,
+        and the chunks are gathered onto the first."""
         chunks = shard_batch(batch, self.mesh) if self.mesh is not None \
             else [batch.to(self.device, non_blocking=True)]
         outs = []
@@ -229,7 +230,9 @@ class FusedStackEngine:
                     x = x * mask
             out = module(x, render_steps=render_steps,
                          interpolate_ins=not self.coarse_boundaries)
-            outs.append((logits_to_prob(out["sem_logits"].float()),
+            # the probabilities in the model's dtype, then float32 (the
+            # JAX block function's concatenation with the float32 carry)
+            outs.append((logits_to_prob(out["sem_logits"]).float(),
                          out["ctr_hmp"][:, 0].float(),
                          out["offsets"].permute(0, 2, 3, 1).float()))
         if len(outs) == 1:

@@ -19,6 +19,7 @@ from empanada_torch.models.blocks import (
     ConvTransposeBNAct,
     SeparableConvBNAct,
     SqueezeExcite,
+    set_compute_dtype,
 )
 from empanada_torch.models.decoders.aspp import ASPP
 from empanada_torch.models.decoders.panoptic_deeplab import (
@@ -56,15 +57,21 @@ MODELS = {
 
 
 def create_model(arch: str, device=None, seed=None, init="random",
-                 **kwargs):
+                 dtype="float32", **kwargs):
     """Build ``arch`` in eval mode on ``device`` (CUDA unless the caller
     names another; raises without a card when none is named).
 
+    ``dtype`` ("float32" / "fp32" / "bfloat16" / "bf16", the recipe's
+    ``MODEL.dtype``) is the compute dtype, as the JAX registry builds
+    ``cls(dtype=dtype)``: convolutions and dense layers compute in it,
+    batch norm in float32, parameters and statistics stay float32
+    (``blocks.set_compute_dtype``). float32 is the parity mode.
+
     ``seed`` makes the init reproducible through an explicit
     ``torch.Generator``: ``init="random"`` is ``init_random_``,
-    ``init="train"`` is ``init_train_``. Reference-only kwargs
-    (``dtype``, the quantized aliases' extras) are accepted and ignored,
-    like the JAX registry."""
+    ``init="train"`` is ``init_train_``. Reference-only kwargs (the
+    quantized aliases' extras) are accepted and ignored, like the JAX
+    registry."""
     if arch not in MODELS:
         raise ValueError(f"unknown arch {arch!r}; choices: {sorted(MODELS)}")
     device = resolve_device(device)
@@ -73,6 +80,7 @@ def create_model(arch: str, device=None, seed=None, init="random",
     model = cls(**{k: v for k, v in kwargs.items() if k in valid})
     if seed is not None:
         {"random": init_random_, "train": init_train_}[init](model, seed)
+    set_compute_dtype(model, dtype)
     return model.to(device).eval()
 
 

@@ -8,6 +8,17 @@ epsilon (1e-5); in train mode it updates its running statistics as
 flax's ``nn.BatchNorm`` does (``FlaxBatchNorm2d``), over the local
 batch or, synchronized across data-parallel ranks
 (``set_sync_batchnorm``), over the global one.
+
+Compute dtype (flax's ``dtype=`` of every module, the registry's
+``MODEL.dtype``): ``set_compute_dtype(model, "bfloat16")`` makes the
+convolutions and dense layers (``Conv2d``, ``ConvTranspose2d``,
+``Linear``: torch's layers with the same parameters) compute on
+bfloat16 inputs and a bfloat16 copy of their float32 weights, batch
+norm and the activation after it run in float32, and each block's
+output is cast to bfloat16, where the JAX package's blocks cast. The
+parameters and batch-norm statistics stay float32. A float32 model
+casts nothing: its forward is the one it always was, bit for bit, and
+the trainer's autocast runs over it unchanged.
 """
 
 from __future__ import annotations
@@ -29,10 +40,95 @@ __all__ = [
     "FlaxBatchNorm2d",
     "bn",
     "set_sync_batchnorm",
+    "Conv2d",
+    "ConvTranspose2d",
+    "Linear",
+    "DTYPES",
+    "set_compute_dtype",
+    "cast",
+    "promote",
 ]
 
 BN_EPS = 1e-5  # flax.linen.BatchNorm default
 BN_MOMENTUM = 0.1  # torch's convention for flax's momentum=0.9
+
+# MODEL.dtype's names, as the JAX registry reads them
+DTYPES = {
+    "float32": torch.float32,
+    "fp32": torch.float32,
+    "bfloat16": torch.bfloat16,
+    "bf16": torch.bfloat16,
+}
+
+
+def set_compute_dtype(module, dtype):
+    """Every submodule of ``module`` that has a compute dtype computes in
+    ``dtype`` (a ``DTYPES`` name). Returns the module."""
+    if dtype not in DTYPES:
+        raise ValueError(f"unknown dtype {dtype!r}; choices: {sorted(DTYPES)}")
+    for m in module.modules():
+        if hasattr(m, "compute_dtype"):
+            m.compute_dtype = DTYPES[dtype]
+    return module
+
+
+def cast(x, dtype):
+    """``x`` in the compute dtype ``dtype``, as a flax block's
+    ``.astype(self.dtype)``; a float32 model casts nothing."""
+    return x if dtype == torch.float32 else x.to(dtype)
+
+
+def promote(x, dtype):
+    """``x`` in float32 where the model computes in a narrower ``dtype``:
+    jax promotes a bfloat16 activation scaled by a float32 parameter
+    (the BiFPN's fusion weights) to float32, where torch keeps the
+    activation's dtype for a 0-dim factor."""
+    return x if dtype == torch.float32 else x.float()
+
+
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` computing in ``compute_dtype`` (flax ``nn.Conv(dtype=)``):
+    the input and a copy of the float32 weight and bias in that dtype."""
+
+    compute_dtype = torch.float32
+
+    def forward(self, x):
+        dt = self.compute_dtype
+        if dt == torch.float32:
+            return super().forward(x)
+        bias = None if self.bias is None else self.bias.to(dt)
+        return self._conv_forward(x.to(dt), self.weight.to(dt), bias)
+
+
+class ConvTranspose2d(nn.ConvTranspose2d):
+    """``nn.ConvTranspose2d`` computing in ``compute_dtype`` (flax
+    ``nn.ConvTranspose(dtype=)``)."""
+
+    compute_dtype = torch.float32
+
+    def forward(self, x):
+        dt = self.compute_dtype
+        if dt == torch.float32:
+            return super().forward(x)
+        bias = None if self.bias is None else self.bias.to(dt)
+        return F.conv_transpose2d(x.to(dt), self.weight.to(dt), bias,
+                                  self.stride, self.padding,
+                                  self.output_padding, self.groups,
+                                  self.dilation)
+
+
+class Linear(nn.Linear):
+    """``nn.Linear`` computing in ``compute_dtype`` (flax
+    ``nn.Dense(dtype=)``)."""
+
+    compute_dtype = torch.float32
+
+    def forward(self, x):
+        dt = self.compute_dtype
+        if dt == torch.float32:
+            return super().forward(x)
+        bias = None if self.bias is None else self.bias.to(dt)
+        return F.linear(x.to(dt), self.weight.to(dt), bias)
 
 
 class FlaxBatchNorm2d(nn.BatchNorm2d):
@@ -50,8 +146,11 @@ class FlaxBatchNorm2d(nn.BatchNorm2d):
     moves by that biased global variance."""
 
     sync_world = 1
+    compute_dtype = torch.float32
 
     def forward(self, x):
+        # flax's BatchNorm(dtype=float32) in a bfloat16 model
+        x = promote(x, self.compute_dtype)
         if not self.training:
             return super().forward(x)
         if self.sync_world > 1:
@@ -111,44 +210,52 @@ class ConvBNAct(nn.Module):
     """conv -> BN -> activation. Grouped-conv capable (cuDNN takes any
     group width as it is)."""
 
+    compute_dtype = torch.float32
+
     def __init__(self, in_features, features, kernel_size=3, stride=1,
                  groups=1, act=F.relu):
         super().__init__()
         pad = (kernel_size - 1) // 2
-        self.Conv_0 = nn.Conv2d(in_features, features, kernel_size, stride,
-                                pad, groups=groups, bias=False)
+        self.Conv_0 = Conv2d(in_features, features, kernel_size, stride,
+                             pad, groups=groups, bias=False)
         self.BatchNorm_0 = bn(features)
         self.act = act
 
     def forward(self, x):
         x = self.BatchNorm_0(self.Conv_0(x))
-        return self.act(x) if self.act is not None else x
+        return cast(self.act(x) if self.act is not None else x,
+                    self.compute_dtype)
 
 
 class SeparableConvBNAct(nn.Module):
     """depthwise conv -> pointwise conv -> BN -> activation."""
 
+    compute_dtype = torch.float32
+
     def __init__(self, in_features, features, kernel_size=3, stride=1,
                  act=F.relu):
         super().__init__()
         pad = (kernel_size - 1) // 2
-        self.Conv_0 = nn.Conv2d(in_features, in_features, kernel_size,
-                                stride, pad, groups=in_features, bias=False)
-        self.Conv_1 = nn.Conv2d(in_features, features, 1, bias=False)
+        self.Conv_0 = Conv2d(in_features, in_features, kernel_size,
+                             stride, pad, groups=in_features, bias=False)
+        self.Conv_1 = Conv2d(in_features, features, 1, bias=False)
         self.BatchNorm_0 = bn(features)
         self.act = act
 
     def forward(self, x):
         x = self.BatchNorm_0(self.Conv_1(self.Conv_0(x)))
-        return self.act(x) if self.act is not None else x
+        return cast(self.act(x) if self.act is not None else x,
+                    self.compute_dtype)
 
 
 class ConvTransposeBNAct(nn.Module):
     """stride == kernel transposed conv -> BN -> activation (2x upsample)."""
 
+    compute_dtype = torch.float32
+
     def __init__(self, in_features, features, kernel_size=2, act=F.relu):
         super().__init__()
-        self.ConvTranspose_0 = nn.ConvTranspose2d(
+        self.ConvTranspose_0 = ConvTranspose2d(
             in_features, features, kernel_size, stride=kernel_size,
             bias=False)
         self.BatchNorm_0 = bn(features)
@@ -156,7 +263,8 @@ class ConvTransposeBNAct(nn.Module):
 
     def forward(self, x):
         x = self.BatchNorm_0(self.ConvTranspose_0(x))
-        return self.act(x) if self.act is not None else x
+        return cast(self.act(x) if self.act is not None else x,
+                    self.compute_dtype)
 
 
 class SqueezeExcite(nn.Module):
@@ -164,8 +272,8 @@ class SqueezeExcite(nn.Module):
 
     def __init__(self, features):
         super().__init__()
-        self.Conv_0 = nn.Conv2d(features, features // 4, 1)
-        self.Conv_1 = nn.Conv2d(features // 4, features, 1)
+        self.Conv_0 = Conv2d(features, features // 4, 1)
+        self.Conv_1 = Conv2d(features // 4, features, 1)
 
     def forward(self, x):
         s = x.mean(dim=(2, 3), keepdim=True)

@@ -22,6 +22,7 @@ from empanada_torch.models.blocks import (
     Resample2d,
     Resize2d,
     SeparableConvBNAct,
+    promote,
 )
 
 __all__ = ["BiFPN", "BiFPNDecoder"]
@@ -43,7 +44,11 @@ def _after(fpn_dim, depthwise):
 class TopDownFPN(nn.Module):
     """Input: features smallest-resolution first. Fuses downward.
 
-    ``in_channels`` lists the channels of feats[1..n_levels]."""
+    ``in_channels`` lists the channels of feats[1..n_levels]. The fusion
+    runs in float32 in a bfloat16 model (flax's promotion by the float32
+    weights)."""
+
+    compute_dtype = torch.float32
 
     def __init__(self, fpn_dim, in_channels, depthwise=True):
         super().__init__()
@@ -55,12 +60,13 @@ class TopDownFPN(nn.Module):
             self.add_module(f"resample_{i}", Resample2d(c, fpn_dim))
 
     def forward(self, feats: List[torch.Tensor]):
+        dt = self.compute_dtype
         weights = _fusion_weights(self.fusion_weights)
         out = [feats[0]]
         for i in range(self.n_levels):
-            high = getattr(self, f"resample_{i}")(feats[i + 1])
+            high = promote(getattr(self, f"resample_{i}")(feats[i + 1]), dt)
             w1, w2 = weights[i], weights[i + 1]
-            fused = (w1 * self.resize_up(out[-1]) + w2 * high) \
+            fused = (w1 * promote(self.resize_up(out[-1]), dt) + w2 * high) \
                 / (w1 + w2 + EPS)
             out.append(self.after(fused))
         return out
@@ -69,7 +75,10 @@ class TopDownFPN(nn.Module):
 class BottomUpFPN(nn.Module):
     """Input: pyramid largest-res first (levels 1..n) plus top-down outputs.
 
-    ``in_channels`` lists the channels of pyramid[0..n_levels-1]."""
+    ``in_channels`` lists the channels of pyramid[0..n_levels-1]. The
+    fusion runs in float32 in a bfloat16 model, as in ``TopDownFPN``."""
+
+    compute_dtype = torch.float32
 
     def __init__(self, fpn_dim, in_channels, depthwise=True):
         super().__init__()
@@ -81,18 +90,20 @@ class BottomUpFPN(nn.Module):
             self.add_module(f"resample_{i}", Resample2d(c, fpn_dim))
 
     def forward(self, pyramid, top_down):
+        dt = self.compute_dtype
         weights = _fusion_weights(self.fusion_weights)
         out = [top_down[0]]
         for i in range(self.n_levels):
-            pyr = getattr(self, f"resample_{i}")(pyramid[i])
+            pyr = promote(getattr(self, f"resample_{i}")(pyramid[i]), dt)
+            down = promote(self.resize_down(out[-1]), dt)
             if i < self.n_levels - 1:
                 w1, w2, w3 = weights[i], weights[i + 1], weights[i + 2]
-                num = (w1 * self.resize_down(out[-1]) + w2 * pyr
-                       + w3 * top_down[i + 1])
+                num = (w1 * down + w2 * pyr
+                       + w3 * promote(top_down[i + 1], dt))
                 den = w1 + w2 + w3 + EPS
             else:
                 w1, w2 = weights[i], weights[i + 1]
-                num = w1 * self.resize_down(out[-1]) + w2 * pyr
+                num = w1 * down + w2 * pyr
                 den = w1 + w2 + EPS
             out.append(self.after(num / den))
         return out

@@ -14,10 +14,11 @@ from __future__ import annotations
 import dataclasses
 from typing import Sequence
 
+import torch
 import torch.nn.functional as F
 from torch import nn
 
-from empanada_torch.models.blocks import bn
+from empanada_torch.models.blocks import Conv2d, bn, cast
 
 __all__ = [
     "ResNet", "ResNetConfig", "BasicBlock", "BottleneckBlock",
@@ -43,11 +44,13 @@ class ResNetConfig:
 
 def _conv(in_features, features, kernel, stride=1, dilation=1, groups=1):
     pad = dilation * (kernel - 1) // 2
-    return nn.Conv2d(in_features, features, kernel, stride, pad,
-                     dilation=dilation, groups=groups, bias=False)
+    return Conv2d(in_features, features, kernel, stride, pad,
+                  dilation=dilation, groups=groups, bias=False)
 
 
 class BasicBlock(nn.Module):
+    compute_dtype = torch.float32
+
     def __init__(self, in_features, planes, stride=1, dilation=1,
                  downsample=False):
         super().__init__()
@@ -61,16 +64,19 @@ class BasicBlock(nn.Module):
         self.downsample = downsample
 
     def forward(self, x):
-        out = F.relu(self.BatchNorm_0(self.Conv_0(x)))
-        out = self.BatchNorm_1(self.Conv_1(out))
+        dt = self.compute_dtype
+        out = cast(F.relu(self.BatchNorm_0(self.Conv_0(x))), dt)
+        out = cast(self.BatchNorm_1(self.Conv_1(out)), dt)
         if self.downsample:
-            x = self.BatchNorm_2(self.Conv_2(x))
+            x = cast(self.BatchNorm_2(self.Conv_2(x)), dt)
         return F.relu(out + x)
 
 
 class BottleneckBlock(nn.Module):
     """1x1 -> 3x3 (grouped, strided, dilated) -> 1x1 to ``planes * 4``;
     the inner width is ``int(planes * width_per_group / 64) * groups``."""
+
+    compute_dtype = torch.float32
 
     def __init__(self, in_features, planes, stride=1, dilation=1, groups=1,
                  base_width=64, downsample=False):
@@ -89,15 +95,18 @@ class BottleneckBlock(nn.Module):
         self.downsample = downsample
 
     def forward(self, x):
-        out = F.relu(self.BatchNorm_0(self.Conv_0(x)))
-        out = F.relu(self.BatchNorm_1(self.Conv_1(out)))
-        out = self.BatchNorm_2(self.Conv_2(out))
+        dt = self.compute_dtype
+        out = cast(F.relu(self.BatchNorm_0(self.Conv_0(x))), dt)
+        out = cast(F.relu(self.BatchNorm_1(self.Conv_1(out))), dt)
+        out = cast(self.BatchNorm_2(self.Conv_2(out)), dt)
         if self.downsample:
-            x = self.BatchNorm_3(self.Conv_3(x))
+            x = cast(self.BatchNorm_3(self.Conv_3(x)), dt)
         return F.relu(out + x)
 
 
 class ResNet(nn.Module):
+    compute_dtype = torch.float32
+
     def __init__(self, cfg: ResNetConfig, output_stride: int = 32):
         super().__init__()
         assert output_stride in (16, 32), output_stride
@@ -131,7 +140,7 @@ class ResNet(nn.Module):
         self.out_channels = [cfg.w_stem] + list(cfg.widths)
 
     def forward(self, x):
-        out = F.relu(self.BatchNorm_0(self.stem(x)))
+        out = cast(F.relu(self.BatchNorm_0(self.stem(x))), self.compute_dtype)
         out = F.max_pool2d(out, 3, stride=2, padding=1)
         features = [out]
         for names in self.block_names:

@@ -5,7 +5,7 @@ from __future__ import annotations
 
 from torch import nn
 
-from empanada_torch.models.blocks import SeparableConvBNAct
+from empanada_torch.models.blocks import Conv2d, SeparableConvBNAct
 
 __all__ = ["PanopticDeepLabHead"]
 
@@ -15,7 +15,7 @@ class PanopticDeepLabHead(nn.Module):
         super().__init__()
         self.SeparableConvBNAct_0 = SeparableConvBNAct(in_features,
                                                        in_features, 5)
-        self.Conv_0 = nn.Conv2d(in_features, n_classes, 1)
+        self.Conv_0 = Conv2d(in_features, n_classes, 1)
 
     def forward(self, x):
         return self.Conv_0(self.SeparableConvBNAct_0(x))

@@ -21,6 +21,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from empanada_torch.models.blocks import Linear
 from empanada_torch.ops.resize import interpolate_scale
 from empanada_torch.ops.sampling import point_sample, point_sample_full_grid
 
@@ -117,9 +118,9 @@ class StandardPointHead(nn.Module):
         self.coarse_pred_each_layer = coarse_pred_each_layer
         nin = fc_dim + num_classes
         for i in range(num_fc):
-            self.add_module(f"Dense_{i}", nn.Linear(nin, fc_dim))
+            self.add_module(f"Dense_{i}", Linear(nin, fc_dim))
             nin = fc_dim + (num_classes if coarse_pred_each_layer else 0)
-        self.add_module(f"Dense_{num_fc}", nn.Linear(nin, num_classes))
+        self.add_module(f"Dense_{num_fc}", Linear(nin, num_classes))
 
     def forward(self, fine_features, coarse_logits):
         x = torch.cat([fine_features, coarse_logits], dim=-1)

@@ -133,8 +133,10 @@ class Trainer:
 
         mcfg = dict(config["MODEL"])
         self.arch = mcfg.pop("arch")
+        # the model keeps float32 compute; MODEL.dtype bfloat16 trains
+        # under autocast on the card
         self.amp_dtype = torch.bfloat16 if (
-            mcfg.get("dtype") in ("bfloat16", "bf16")
+            mcfg.pop("dtype", None) in ("bfloat16", "bf16")
             and self.device.type == "cuda") else None
         self.model = create_model(self.arch, device="cpu", seed=seed,
                                   init="train", **mcfg).to(self.device)

@@ -72,8 +72,8 @@ PARALLEL_MODULES = ("empanada_torch.parallel",
                     "empanada_torch.parallel.multihost")
 
 
-# the bench MitoNet's module
-BENCH_MODULES = ("empanada_torch.bench_heads",)
+# the bench MitoNet's module and the benchmark entry point
+BENCH_MODULES = ("empanada_torch.bench_heads", "empanada_torch.bench")
 
 
 def _port_sources():
@@ -134,6 +134,25 @@ def test_bench_heads_imports_nothing_of_jax():
         "from empanada_torch import bench_heads\n"
         "from empanada_torch.bench_heads import fit, splice, content_free\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {BLOCKED!r}]\n"
+        "assert not bad, bad\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_bench_imports_nothing_of_jax():
+    """The benchmark entry point (``python -m empanada_torch.bench``) and
+    everything its sections reach import no jax, flax, optax or
+    empanada_tpu, nor the JAX package's ``tools``."""
+    code = (
+        "import sys\n"
+        "from empanada_torch import bench\n"
+        "from empanada_torch.bench import run_bench, main\n"
+        "from empanada_torch.cli.infer3d import run_inference3d\n"
+        "from empanada_torch.evaluation.evaluator import default_evaluator\n"
+        "from empanada_torch.models.quantization import quantize_model\n"
+        f"bad = [m for m in sys.modules if m.split('.')[0] in "
+        f"{BLOCKED + ('tools',)!r}]\n"
         "assert not bad, bad\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                           capture_output=True, text=True, timeout=120)

@@ -258,7 +258,10 @@ def test_modules_without_scale_or_int8_weight_fall_through(quantized):
     dequant = export.dequantize_state_int8(int8_state)
     for name in (big[0], small[0].replace("/", ".")):
         mod = port.get_submodule(name)
-        assert type(mod) in (nn.Conv2d, nn.Linear), name
+        # not swapped: a float layer (the port's compute-dtype
+        # subclasses of nn.Conv2d / nn.Linear), no int8 module
+        assert isinstance(mod, (nn.Conv2d, nn.Linear)), name
+        assert not isinstance(mod, (tq.Int8Conv2d, tq.Int8Linear)), name
         assert torch.equal(mod.weight, dequant[name + ".weight"]), name
     out = port(_nchw(q["batches"][0]), **export.FORWARD_KW)
     assert torch.isfinite(out["sem_logits"]).all()
