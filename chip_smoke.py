@@ -156,7 +156,20 @@ failure exits non-zero before the final line):
    numbers;
 17. the benchmark entry point: ``python -m empanada_torch.bench`` as a
    subprocess, its one JSON line parsed and printed, its keys, dtype,
-   modes and IoU gate checked (a failure fails the run).
+   modes and IoU gate checked (a failure fails the run);
+18. entry, the counterpart of the JAX package's root
+   ``__graft_entry__.py``: ``empanada_torch.entry.entry()`` (MitoNet at
+   full width, (1, 1, 256, 256)), ``fn(*example_args)`` and ``fn`` on a
+   seeded image equal to the module's own forward bit for bit, the
+   forward's median ms (CUDA events, float32, TF32 off), ``torch.export``
+   of ``fn`` against the eager forward; ``dryrun_multichip(n)`` at n =
+   ``device_count`` (NCCL, a card a rank) and at n = 2 (on one card: two
+   gloo ranks share it, the mesh repeats it): the tiny recipe's step at
+   world n against one process's, each number beside its tolerance, and
+   the mesh orthoplane consensus equal to the run without a mesh, with
+   K1's launches counted around each dry run and every block's ids held
+   against ``group_pixels_plain``. ``--multi-device-only`` runs it after
+   phase 14.
 
 Each phase prints its seconds. The line before the last is the kernel table (JSON); the last line is
 ``{"ok": true, "device": {...}}``.
@@ -2602,9 +2615,6 @@ def phase_curation(vol, gt, tmp):
 
 DDP_BATCH = 16
 DDP_SIDE = 256
-# the JAX package's data-parallel tolerances (__graft_entry__._dryrun_impl)
-DDP_TOL = {"loss_rel": 1e-5, "grad_rel_l2": 1e-4, "bn_abs": 1e-4,
-           "param_abs": 1e-3}
 
 
 def free_port():
@@ -2675,38 +2685,6 @@ def ddp_inputs():
     return batch, coords
 
 
-def step_record(trainer, aux):
-    """Loss, trainable gradients, parameters and BN statistics of a
-    trainer after its step, on the host."""
-    return {"loss": float(aux["total_loss"]),
-            "grads": {n: p.grad.detach().cpu() for n, p in
-                      trainer.model.named_parameters() if p.grad is not None},
-            "state": {k: v.detach().cpu() for k, v in
-                      trainer.model.state_dict().items()}}
-
-
-def compare_steps(got, want):
-    """The data-parallel tolerances between two steps: (numbers, ok)."""
-    import torch
-
-    names = sorted(want["grads"])
-    g = torch.cat([got["grads"][n].reshape(-1).double() for n in names])
-    w = torch.cat([want["grads"][n].reshape(-1).double() for n in names])
-    stats = [k for k in want["state"]
-             if k.endswith(("running_mean", "running_var"))]
-    params = [k for k in names]
-    nums = {
-        "loss_rel": abs(got["loss"] - want["loss"]) / abs(want["loss"]),
-        "grad_rel_l2": float((g - w).norm() / w.norm()),
-        "bn_abs": max(float((got["state"][k] - want["state"][k]).abs().max())
-                      for k in stats),
-        "param_abs": max(float((got["state"][k] - want["state"][k])
-                               .abs().max()) for k in params)}
-    ok = sorted(got["grads"]) == names and all(
-        nums[k] <= DDP_TOL[k] for k in DDP_TOL)
-    return nums, ok
-
-
 def worker_ddp(rank, world, out, backend, price):
     """One rank of the data-parallel parity step (float32, TF32 off) on
     its rows of the global batch, then timed bf16 steps and a profiled
@@ -2722,6 +2700,7 @@ def worker_ddp(rank, world, out, backend, price):
     import torch
     import torch.distributed as dist
 
+    from empanada_torch.entry import step_record
     from empanada_torch.parallel import initialize_distributed
     from empanada_torch.train import Trainer
 
@@ -3009,6 +2988,7 @@ def ddp_parity(tmp, profile):
 
     import torch
 
+    from empanada_torch.entry import DDP_TOL, compare_steps, step_record
     from empanada_torch.train import Trainer
 
     count = torch.cuda.device_count()
@@ -3806,6 +3786,130 @@ def phase_bench_entry():
             for name in ("stack_512", "orthoplane", "product_density")}
 
 
+def median_ms(fn, reps=20, warmup=3):
+    """Median milliseconds of one call of fn() on the card's clock (CUDA
+    events around each of ``reps`` calls, after ``warmup`` calls)."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    events = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+    for start, stop in events:
+        start.record()
+        fn()
+        stop.record()
+    torch.cuda.synchronize()
+    return float(np.median([a.elapsed_time(b) for a, b in events]))
+
+
+def phase_entry():
+    """Phase 18: the counterpart of the JAX package's root
+    ``__graft_entry__.py``. (a) ``entry()``: ``fn(*example_args)`` and
+    ``fn`` on a seeded image held bit for bit against the module's own
+    forward (the flagship built again from the same seed), the forward's
+    median ms (float32, TF32 off), ``torch.export`` of ``fn`` against the
+    eager forward; (b) ``dryrun_multichip(device_count)`` and, where that
+    is not 2, ``dryrun_multichip(2)`` (on one card: two gloo ranks share
+    it and the mesh repeats it), each with the K1 counts set to 0 just
+    before and read just after, and the K1 ids of every block of its
+    runs held against group_pixels_plain (``BlockTape``). Returns K1
+    launches by world."""
+    import torch
+
+    from empanada_torch import entry as entry_mod
+    from empanada_torch.ops import group
+
+    card = card_name_and_limit()
+    t0 = time.time()
+    fn, (params, image) = entry_mod.entry()
+    model, _ = entry_mod._flagship()
+    seeded = torch.from_numpy(np.random.default_rng(18).normal(
+        0, 1, tuple(image.shape)).astype(np.float32)).to(image.device)
+    print(f"entry(): MitoNet at full width, {len(params)} parameters and "
+          f"buffers, image {tuple(image.shape)} on {image.device}, built in "
+          f"{time.time() - t0:.1f} s")
+    with torch.no_grad():
+        for label, x in (("the example image (zeros)", image),
+                         ("a seeded image", seeded)):
+            got = fn(params, x)
+            want = model(x, render_steps=2, interpolate_ins=False)
+            bad = [k for k in want if not torch.equal(got[k], want[k])]
+            if sorted(got) != sorted(want) or bad:
+                fail(f"entry(): fn on {label} differs from the module's "
+                     f"forward in {bad or sorted(got)}")
+            print(f"entry(): fn(params, image) == model(image, "
+                  f"render_steps=2, interpolate_ins=False) bit for bit on "
+                  f"{label}: " + ", ".join(
+                      f"{k} {tuple(v.shape)} max |value| "
+                      f"{float(v.abs().max()):.4f}" for k, v in got.items()))
+        ms = median_ms(lambda: fn(params, image))
+        eager_ms = median_ms(
+            lambda: model(image, render_steps=2, interpolate_ins=False))
+
+        class Forward(torch.nn.Module):
+            def forward(self, params, image):
+                return fn(params, image)
+
+        t0 = time.time()
+        program = torch.export.export(Forward(), (params, image))
+        export_s = time.time() - t0
+        exported = program.module()(params, seeded)
+        want = model(seeded, render_steps=2, interpolate_ins=False)
+    print(f"entry(): forward {tuple(image.shape)} float32 (TF32 off), "
+          f"median of 20 after 3 warm-ups (CUDA events): fn {ms:.3f} ms, "
+          f"the module's own forward {eager_ms:.3f} ms; card {card}")
+    for k in want:
+        diff = float((exported[k] - want[k]).abs().max())
+        scale = float(want[k].abs().max())
+        print(f"entry(): torch.export of fn ({export_s:.1f} s) on the seeded "
+              f"image, {k}: max abs difference {diff:.3e} from the eager "
+              f"forward (max |value| {scale:.4f})")
+        if not diff <= 1e-4 * scale:
+            fail(f"entry(): the exported fn differs from the eager forward "
+                 f"in {k} by {diff}")
+    del fn, params, model, program
+    torch.cuda.empty_cache()
+
+    launches = {}
+    for n in sorted({torch.cuda.device_count(), 2}):
+        group.reset_launches()
+        t0 = time.time()
+        with BlockTape() as tape:
+            report = entry_mod.dryrun_multichip(n)
+        torch.cuda.synchronize()
+        seconds = time.time() - t0
+        total = group.LAUNCHES["group_pixels"]
+        by_card = dict(group.LAUNCHES_BY_CARD)
+        blocks = 0
+        for a, calls in enumerate(tape.groups):
+            for i, (c, v, o, step, ids) in enumerate(calls):
+                plain = group.group_pixels_plain(c, v, o, step)
+                if not torch.equal(plain, ids):
+                    fail(f"dryrun_multichip({n}) pass {a} block {i}: K1's "
+                         f"ids differ from group_pixels_plain's in "
+                         f"{int((plain != ids).sum())} pixels")
+                blocks += 1
+        if total == 0 or total != blocks:
+            fail(f"dryrun_multichip({n}): {total} K1 launches, {blocks} "
+                 f"grouping calls recorded")
+        train = report["train"]
+        print(f"dryrun_multichip({n}) on {card}: {seconds:.1f} s wall "
+              f"(rank start-up included); ranks over "
+              f"{report['backend'] or 'no group (world 1)'}, "
+              f"devices {[str(d) for d in report['devices']]}; train step "
+              f"loss {train['loss']:.6f}, " + ", ".join(
+                  f"{k} {train[k]:.3e} (tol {entry_mod.DDP_TOL[k]:.0e})"
+                  for k in entry_mod.DDP_TOL)
+              + f"; mesh consensus == no mesh, RLE for RLE, "
+              f"{len(report['instances'])} instance(s); K1 launches {total} "
+              f"(by card {by_card}), ids == group_pixels_plain on all "
+              f"{blocks} blocks of {len(tape.groups)} passes")
+        launches[f"entry_dryrun_world{n}"] = total
+    return launches
+
+
 PORT = None
 
 
@@ -3852,9 +3956,9 @@ def main():
                              "DDP step: the collectives priced against "
                              "other ways to run them)")
     parser.add_argument("--multi-device-only", action="store_true",
-                        help="run the build, the kernel checks and phase "
-                             "14 (multi-device) alone, with the volume and "
-                             "the training set it needs")
+                        help="run the build, the kernel checks, phase "
+                             "14 (multi-device) with the volume and the "
+                             "training set it needs, and phase 18 (entry)")
     args = parser.parse_args()
 
     root = Path(__file__).resolve().parent
@@ -3881,8 +3985,9 @@ def main():
             row["launches_by_path"] = timed_phase(
                 "14 multi-device", phase_multi_device, ortho_vol, dirs, tmp,
                 args.profile)
+        row["launches_by_path"].update(timed_phase("18 entry", phase_entry))
         row["launches"] = row["launches_by_path"]["mesh_orthoplane"]
-        row["launches_is"] = "the mesh orthoplane path (phase 14 alone)"
+        row["launches_is"] = "the mesh orthoplane path of phase 14"
         finish(row)
         return
     trackers = density_trackers()
@@ -3948,6 +4053,7 @@ def main():
         row["shapes"][shape] = {"real": timing}
     row["launches_by_path"].update(timed_phase(
         "17 bench entry point", phase_bench_entry))
+    row["launches_by_path"].update(timed_phase("18 entry", phase_entry))
     finish(row)
 
 

@@ -121,8 +121,9 @@ class FusedStackEngine:
     ``infer_blocks(dataset)`` and ``infer_blocks_resident(volume)``
     yield (z_indices, pan_block, packed) per block; ``packed`` converts
     with ``np.asarray`` to the (B, 1+R, 3) int32 buffer, ``pan_block``
-    holds the padded (B, ph, pw) maps. ``block_cost_analysis()`` counts
-    a block's FLOPs.
+    holds the padded (B, ph, pw) maps. ``infer_stack(dataset)`` yields
+    the same slice by slice in the true crop shape.
+    ``block_cost_analysis()`` counts a block's FLOPs.
     """
 
     def __init__(self, module, variables, thing_list, block_size=None,
@@ -386,6 +387,30 @@ class FusedStackEngine:
                 yield inflight.popleft()
         while inflight:
             yield inflight.popleft()
+
+    def infer_stack(self, dataset, upsampling=1):
+        """Per-slice view of ``infer_blocks``: yields (z, pan_slice,
+        (starts, ends, values, n_runs)) in z order, for tests and small
+        volumes (each slice's map is its own copy to the host; the
+        orthoplane path consumes whole blocks). The map and the run
+        coordinates are in the true crop shape, rebased on the host from
+        the blocks' factor-padded grid; on run-budget overflow the runs
+        are the buffer's rows as they are and the map is the one to
+        read."""
+        from empanada_torch.inference.rle import unpack_packed_runs
+
+        for z_indices, pan, packed in self.infer_blocks(dataset, upsampling):
+            arr = np.asarray(packed)
+            pad_shape = tuple(pan.shape[-2:])
+            for j, z in enumerate(z_indices):
+                if z is None:
+                    continue
+                n_runs = arr[j, 0, 0]
+                starts, ends, values, (oh, ow) = unpack_packed_runs(
+                    arr[j], pad_shape)
+                if starts is None:
+                    starts, ends, values = arr[j, 1:].T
+                yield z, pan[j][:oh, :ow], (starts, ends, values, n_runs)
 
     @torch.inference_mode()
     def infer_blocks(self, dataset, upsampling=1):

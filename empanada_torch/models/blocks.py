@@ -143,7 +143,10 @@ class FlaxBatchNorm2d(nn.BatchNorm2d):
     ranks, as flax's BN under the JAX package's mesh: the per-rank sums
     of x and x^2 go through one autograd-aware all-reduce, the variance
     is flax's E[x^2] - E[x]^2 (clipped at 0), and the running variance
-    moves by that biased global variance."""
+    moves by that biased global variance. A batch of one value a
+    channel (a 1x1 map at batch 1, which torch's batch norm refuses) goes
+    the same way without the all-reduce: flax normalizes it to the
+    bias."""
 
     sync_world = 1
     compute_dtype = torch.float32
@@ -153,7 +156,7 @@ class FlaxBatchNorm2d(nn.BatchNorm2d):
         x = promote(x, self.compute_dtype)
         if not self.training:
             return super().forward(x)
-        if self.sync_world > 1:
+        if self.sync_world > 1 or x.numel() == x.shape[1]:
             return self._sync_forward(x)
         # torch moves a copy of the variance by 0.1 * var * n / (n - 1);
         # the stored one takes that new term rescaled to the biased
@@ -171,13 +174,15 @@ class FlaxBatchNorm2d(nn.BatchNorm2d):
         return out
 
     def _sync_forward(self, x):
-        from torch.distributed.nn.functional import all_reduce
-
         c = x.shape[1]
         xf = x.float()
         n = xf.numel() // c * self.sync_world
-        moments = all_reduce(torch.cat([xf.sum((0, 2, 3)),
-                                        xf.square().sum((0, 2, 3))])) / n
+        moments = torch.cat([xf.sum((0, 2, 3)), xf.square().sum((0, 2, 3))])
+        if self.sync_world > 1:
+            from torch.distributed.nn.functional import all_reduce
+
+            moments = all_reduce(moments)
+        moments = moments / n
         mean, sq = moments[:c], moments[c:]
         var = torch.clamp(sq - mean.square(), min=0.0)
         mul = torch.rsqrt(var + self.eps) * self.weight
@@ -185,7 +190,10 @@ class FlaxBatchNorm2d(nn.BatchNorm2d):
             + self.bias[None, :, None, None]
         with torch.no_grad():
             keep = 1.0 - self.momentum
-            self.running_mean.mul_(keep).add_(mean, alpha=self.momentum)
+            # through .data: a call of this module earlier in the same
+            # forward (F.batch_norm on a larger map) saved running_mean for
+            # its backward, which reads only the batch moments it saved
+            self.running_mean.data.mul_(keep).add_(mean, alpha=self.momentum)
             self.running_var.mul_(keep).add_(var, alpha=self.momentum)
             self.num_batches_tracked.add_(1)
         return y.to(x.dtype)

@@ -75,6 +75,9 @@ PARALLEL_MODULES = ("empanada_torch.parallel",
 # the bench MitoNet's module and the benchmark entry point
 BENCH_MODULES = ("empanada_torch.bench_heads", "empanada_torch.bench")
 
+# the counterpart of the JAX package's root __graft_entry__.py
+ENTRY_MODULES = ("empanada_torch.entry",)
+
 
 def _port_sources():
     return sorted((ROOT / "empanada_torch").rglob("*.py")) + [
@@ -87,7 +90,8 @@ def test_every_module_imports_with_jax_blocked():
     assert "empanada_torch.inference.fused" in names
     assert set(NEW_MODULES + HOST_CORE_MODULES + TRAIN_MODULES
                + EVAL_MODULES + ARTIFACT_MODULES
-               + PARALLEL_MODULES + BENCH_MODULES) <= set(names)
+               + PARALLEL_MODULES + BENCH_MODULES + ENTRY_MODULES) \
+        <= set(names)
     blocked = BLOCKED + ("yaml", "cv2", "mlflow", "msgpack")
     code = (
         "import sys\n"
@@ -157,6 +161,42 @@ def test_bench_imports_nothing_of_jax():
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
+
+
+def test_entry_imports_nothing_of_jax():
+    """``empanada_torch.entry`` (``entry``, ``dryrun_multichip`` and
+    everything the dry run reaches: the trainer, the mesh, the orthoplane
+    path, the synthetic model) imports no jax, flax, optax or
+    empanada_tpu, nor the JAX package's root ``__graft_entry__``."""
+    code = (
+        "import sys\n"
+        "from empanada_torch.entry import entry, dryrun_multichip, main\n"
+        "from empanada_torch.train import Trainer\n"
+        "from empanada_torch.cli.infer3d import run_inference3d\n"
+        "from empanada_torch.synthetic import SyntheticModule\n"
+        "from empanada_torch.cli.train import _free_port\n"
+        f"bad = [m for m in sys.modules if m.split('.')[0] in "
+        f"{BLOCKED + ('__graft_entry__',)!r}]\n"
+        "assert not bad, bad\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_entry_points_of_entry_raise_without_cuda(monkeypatch):
+    from empanada_torch import entry
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        entry.entry()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        entry.dryrun_multichip(2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        entry.main([])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        entry.main(["2"])
+    with pytest.raises(SystemExit):
+        entry.main(["--device", "cpu"])  # n must be named on the CPU
 
 
 def test_import_neither_builds_nor_loads_the_host_core():

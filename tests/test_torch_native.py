@@ -13,13 +13,23 @@ alone and still give the same answer.
 Also here: the library builds from a clean directory with g++ alone, a
 broken compiler raises, EMPANADA_TORCH_NO_NATIVE gives the numpy path,
 and host threads calling the library at once get the serial answers.
+
+The JAX package's library is this file's own build (``jax_library``):
+the JAX loader builds ``libetpu_core.so`` in place with ``make``, and
+test processes that load it while another one writes it get no library
+at all, so this file builds a private copy, under a file lock, and
+points the loader at it while its tests run.
 """
 
 import ctypes
+import fcntl
+import hashlib
 import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import threading
 from pathlib import Path
 
@@ -47,6 +57,46 @@ WRAPPERS = ("coverage_ranges", "ranges_intersection", "pair_intersections",
             "kway_merge_ranges", "kway_vote", "kway_union_sr",
             "kway_union_batch", "rle_union", "box_overlap_pairs", "runs_ccl",
             "runs_ccl3d", "fill_runs", "encode_runs")
+
+
+@pytest.fixture(scope="module", autouse=True)
+def jax_library():
+    """The JAX package's host core built from a copy of its ``core.cpp``
+    and ``Makefile`` in a directory of the temporary directory named by
+    their hash (``make`` there, as ``tests/test_native_build.py`` builds
+    it, once, under an exclusive ``fcntl`` lock on that directory), and
+    the JAX loader pointed at it for this module (its library and
+    directory, with a fresh load), restored afterwards. Nothing of this
+    file runs ``make`` in ``empanada_tpu/core/_native/``."""
+    src = ROOT / "empanada_tpu" / "core" / "_native"
+    files = ("core.cpp", "Makefile")
+    key = hashlib.sha256(b"".join((src / f).read_bytes()
+                                  for f in files)).hexdigest()[:16]
+    build = Path(tempfile.gettempdir()) / f"empanada_tpu_core_{key}"
+    build.mkdir(exist_ok=True)
+    lib = build / "libetpu_core.so"
+    with open(build / "lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not lib.exists():
+            work = Path(tempfile.mkdtemp(dir=build))
+            for f in files:
+                shutil.copy(src / f, work / f)
+            subprocess.run(["make", "-C", str(work), "-s"], check=True,
+                           capture_output=True, timeout=120)
+            for f in files:
+                os.replace(work / f, build / f)
+            os.replace(work / lib.name, lib)
+            shutil.rmtree(work)
+    saved = (jax_native._NATIVE_DIR, jax_native._LIB_PATH, jax_native._lib,
+             jax_native._tried)
+    jax_native._NATIVE_DIR, jax_native._LIB_PATH = str(build), str(lib)
+    jax_native._lib, jax_native._tried = None, False
+    try:
+        assert jax_native.get_lib() is not None, lib
+        yield lib
+    finally:
+        (jax_native._NATIVE_DIR, jax_native._LIB_PATH, jax_native._lib,
+         jax_native._tried) = saved
 
 
 def assert_same(got, want, what=""):
