@@ -96,6 +96,11 @@ def parse_args(argv=None):
     parser.add_argument("--use-cpu", action="store_true",
                         help="Run inference on the CPU instead of CUDA")
     parser.add_argument("--save-panoptic", action="store_true")
+    parser.add_argument("-trace-dir", type=str, dest="trace_dir",
+                        default=None,
+                        help="Run the command under torch.profiler and "
+                             "write DIR/trace.json and the host's spans "
+                             "to DIR/spans.json")
 
     # recipe yaml (reference per-dataset configs, e.g.
     # projects/mitonet/configs/mmm_median_inference_lucchi.yaml) provides
@@ -156,6 +161,7 @@ def run_inference3d(
     from empanada_torch.data import VolumeDataset
     from empanada_torch.inference import patterns
     from empanada_torch.inference.fused import CHUNK_BYTES, FusedStackEngine
+    from empanada_torch.utils import profiling
 
     if isinstance(model, tuple):
         module, variables = model
@@ -174,109 +180,116 @@ def run_inference3d(
                 "integer-typed volume with no normalization: pass norms="
                 "{'mean':..,'std':..} or a host-side tfs")
 
-    shape = tuple(volume.shape)
-    axes = {"xy": 0} if mode == "stack" else {"xy": 0, "xz": 1, "yz": 2}
-    trackers = patterns.create_axis_trackers(
-        axes, labels, label_divisor, shape)
+    cid = profiling.new_call()
+    with profiling.span("infer.setup", cid):
+        shape = tuple(volume.shape)
+        axes = {"xy": 0} if mode == "stack" else {"xy": 0, "xz": 1, "yz": 2}
+        trackers = patterns.create_axis_trackers(
+            axes, labels, label_divisor, shape)
 
-    # ONE engine for all axes: the weights go to the device once, and
-    # everything that depends on the slice shape is derived per call
-    engine = FusedStackEngine(
-        module, variables, thing_list,
-        block_size=block_size,
-        label_divisor=label_divisor,
-        median_kernel_size=qlen,
-        nms_threshold=nms_thr,
-        nms_kernel=nms_kernel,
-        confidence_thr=seg_thr,
-        padding_factor=padding_factor,
-        coarse_boundaries=not fine_boundaries,
-        max_centers=max_centers,
-        max_runs=max_runs,
-        stuff_area=0,
-        device_norms=device_norms,
-        pipeline_depth=pipeline_depth,
-        device=device,
-        mesh=mesh,
-    )
+        # ONE engine for all axes: the weights go to the device once, and
+        # everything that depends on the slice shape is derived per call
+        engine = FusedStackEngine(
+            module, variables, thing_list,
+            block_size=block_size,
+            label_divisor=label_divisor,
+            median_kernel_size=qlen,
+            nms_threshold=nms_thr,
+            nms_kernel=nms_kernel,
+            confidence_thr=seg_thr,
+            padding_factor=padding_factor,
+            coarse_boundaries=not fine_boundaries,
+            max_centers=max_centers,
+            max_runs=max_runs,
+            stuff_area=0,
+            device_norms=device_norms,
+            pipeline_depth=pipeline_depth,
+            device=device,
+            mesh=mesh,
+        )
 
-    resident = (resident and mesh is None and downsample_f == 1
-                and device_norms is not None
-                and isinstance(volume, np.ndarray))
-    on_device = None
-    if resident and volume.nbytes <= CHUNK_BYTES:
-        t0 = time.time()
-        on_device = torch.from_numpy(np.require(volume, requirements="CW")).to(
-            engine.device)
-        if stats is not None:
-            stats["upload_bytes"] = volume.nbytes
-            stats["upload_seconds"] = round(time.time() - t0, 6)
+        resident = (resident and mesh is None and downsample_f == 1
+                    and device_norms is not None
+                    and isinstance(volume, np.ndarray))
+        on_device = None
+        if resident and volume.nbytes <= CHUNK_BYTES:
+            t0 = time.time()
+            on_device = torch.from_numpy(
+                np.require(volume, requirements="CW")).to(engine.device)
+            if stats is not None:
+                stats["upload_bytes"] = volume.nbytes
+                stats["upload_seconds"] = round(time.time() - t0, 6)
 
     finish_threads = []
     finish_errors = []
     for axis_name, axis in axes.items():
-        t_axis = time.time()
-        matchers = patterns.create_matchers(
-            thing_list, label_divisor, iou_thr, ioa_thr)
-        fm = patterns.ForwardMatcher(matchers, labels, label_divisor,
-                                     thing_list)
-        dataset = VolumeDataset(volume, axis=axis, tfs=tfs,
-                                scale=downsample_f)
-        n = len(dataset)
+        with profiling.span("infer.axis", cid):
+            t_axis = time.time()
+            with profiling.span("infer.setup"):
+                matchers = patterns.create_matchers(
+                    thing_list, label_divisor, iou_thr, ioa_thr)
+                fm = patterns.ForwardMatcher(matchers, labels, label_divisor,
+                                             thing_list)
+                dataset = VolumeDataset(volume, axis=axis, tfs=tfs,
+                                        scale=downsample_f)
+                n = len(dataset)
 
-        pan_stack = [] if save_panoptic_dir else None
-        if pan_stack is not None:
-            sl_h, sl_w = (int(s) for s in np.asarray(dataset[0]["size"]))
-        if on_device is not None:
-            block_iter = engine.infer_blocks_resident(
-                torch.movedim(on_device, axis, 0))
-        elif resident:
-            block_iter = engine.infer_blocks_resident(
-                np.moveaxis(volume, axis, 0))
-        else:
-            block_iter = engine.infer_blocks(dataset,
-                                             upsampling=downsample_f)
-        for z_indices, pan_block, packed in block_iter:
-            fm.put_block(z_indices, pan_block, packed)
-            if pan_stack is not None:
-                # blocks carry padded maps; crop to this axis's true
-                # slice shape
-                block = np.asarray(pan_block)[..., :sl_h, :sl_w]
-                pan_stack.extend(block[j] for j, z in enumerate(z_indices)
-                                 if z is not None)
+                pan_stack = [] if save_panoptic_dir else None
+                if pan_stack is not None:
+                    sl_h, sl_w = (int(s) for s in
+                                  np.asarray(dataset[0]["size"]))
+            if on_device is not None:
+                block_iter = engine.infer_blocks_resident(
+                    torch.movedim(on_device, axis, 0))
+            elif resident:
+                block_iter = engine.infer_blocks_resident(
+                    np.moveaxis(volume, axis, 0))
+            else:
+                block_iter = engine.infer_blocks(dataset,
+                                                 upsampling=downsample_f)
+            for z_indices, pan_block, packed in block_iter:
+                fm.put_block(z_indices, pan_block, packed)
+                if pan_stack is not None:
+                    # blocks carry padded maps; crop to this axis's true
+                    # slice shape
+                    block = np.asarray(pan_block)[..., :sl_h, :sl_w]
+                    pan_stack.extend(block[j] for j, z in
+                                     enumerate(z_indices) if z is not None)
 
-        # the matcher tail (queue drain, backward matching, tracking,
-        # filters) is host work: run it on a thread so the NEXT axis's
-        # device stream starts the moment this axis's last block is
-        # dispatched. Identical to the serial composition: each axis
-        # owns its matchers/trackers and consensus waits for every join.
-        forward_seconds = time.time() - t_axis
+            # the matcher tail (queue drain, backward matching, tracking,
+            # filters) is host work: run it on a thread so the NEXT axis's
+            # device stream starts the moment this axis's last block is
+            # dispatched. Identical to the serial composition: each axis
+            # owns its matchers/trackers and consensus waits for every
+            # join. The axis's span closes once the tail is handed over.
+            forward_seconds = time.time() - t_axis
 
-        def _finish(matchers=matchers,
-                    axis_trackers=trackers[axis_name], n=n,
-                    axis_name=axis_name, fm=fm, t_axis=t_axis,
-                    forward_seconds=forward_seconds):
-            rle_stack = fm.finish()
-            assert len(rle_stack) == n, (len(rle_stack), n)
-            patterns.finish_axis(rle_stack, matchers, axis_trackers, n,
-                                 min_size, min_span)
-            if stats is not None:
-                stats.setdefault("axes", {})[axis_name] = {
-                    "slices": n,
-                    # axis start -> last block dispatched and handed to
-                    # the matcher; "seconds" runs on to the tail's end
-                    "forward_seconds": round(forward_seconds, 3),
-                    "seconds": round(time.time() - t_axis, 3),
-                    "overflow_slices": fm.overflow_count,
-                    "instances_matched": sum(
-                        len(s[c]) for s in rle_stack for c in thing_list
-                        if c in s),
-                }
+            def _finish(matchers=matchers,
+                        axis_trackers=trackers[axis_name], n=n,
+                        axis_name=axis_name, fm=fm, t_axis=t_axis,
+                        forward_seconds=forward_seconds):
+                rle_stack = fm.finish()
+                assert len(rle_stack) == n, (len(rle_stack), n)
+                patterns.finish_axis(rle_stack, matchers, axis_trackers, n,
+                                     min_size, min_span, call=cid)
+                if stats is not None:
+                    stats.setdefault("axes", {})[axis_name] = {
+                        "slices": n,
+                        # axis start -> last block dispatched and handed to
+                        # the matcher; "seconds" runs on to the tail's end
+                        "forward_seconds": round(forward_seconds, 3),
+                        "seconds": round(time.time() - t_axis, 3),
+                        "overflow_slices": fm.overflow_count,
+                        "instances_matched": sum(
+                            len(s[c]) for s in rle_stack for c in thing_list
+                            if c in s),
+                    }
 
-        th = threading.Thread(target=_run_noexcept,
-                              args=(_finish, finish_errors), daemon=True)
-        th.start()
-        finish_threads.append(th)
+            th = threading.Thread(target=_run_noexcept,
+                                  args=(_finish, finish_errors), daemon=True,
+                                  name=f"infer-finish-{axis_name}")
+            th.start()
+            finish_threads.append(th)
         if progress:
             print(f"[{axis_name}] {n} slices forward in "
                   f"{forward_seconds:.1f}s")
@@ -286,16 +299,18 @@ def run_inference3d(
                                  f"panoptic_{axis_name}.npy"),
                     np.stack(pan_stack))
 
-    for th in finish_threads:
-        th.join()
+    with profiling.span("infer.join", cid):
+        for th in finish_threads:
+            th.join()
     if finish_errors:
         raise finish_errors[0]
 
     t_cons = time.time()
-    consensus = patterns.build_consensus(
-        trackers, labels, thing_list, mode=mode,
-        pixel_vote_thr=pixel_vote_thr, cluster_iou_thr=cluster_iou_thr,
-        one_view=one_view, min_size=min_size, min_span=min_span)
+    with profiling.span("infer.consensus", cid):
+        consensus = patterns.build_consensus(
+            trackers, labels, thing_list, mode=mode,
+            pixel_vote_thr=pixel_vote_thr, cluster_iou_thr=cluster_iou_thr,
+            one_view=one_view, min_size=min_size, min_span=min_span)
     if stats is not None:
         stats["consensus_seconds"] = round(time.time() - t_cons, 3)
         stats["instances_3d"] = {
@@ -342,7 +357,14 @@ def print_quantized_warning(desc):
 
 
 def main(argv=None):
+    from empanada_torch.utils.profiling import trace
+
     args = parse_args(argv)
+    with trace(args.trace_dir, enabled=args.trace_dir is not None):
+        _run_command(args)
+
+
+def _run_command(args):
     assert math.log2(args.downsample_f).is_integer(), \
         "downsample factor must be a power of 2"
     mesh = _mesh(args)

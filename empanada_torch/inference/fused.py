@@ -57,6 +57,7 @@ from empanada_torch.ops.postprocess import (
 from empanada_torch.ops.resize import factor_pad
 from empanada_torch.ops.rle_device import extract_fg_runs
 from empanada_torch.parallel.mesh import replicate, shard_batch
+from empanada_torch.utils import profiling
 
 __all__ = ["FusedStackEngine", "CHUNK_BYTES"]
 
@@ -75,7 +76,8 @@ class _HostPacked:
 
     def __array__(self, dtype=None, copy=None):
         if self._event is not None:
-            self._event.synchronize()
+            with profiling.span("infer.d2h_wait"):
+                self._event.synchronize()
             self._event = None
         arr = self._host.numpy()
         return arr if dtype is None else arr.astype(dtype)
@@ -372,8 +374,10 @@ class FusedStackEngine:
         inflight = deque()
         self.last_dispatch_count = 0
         for block_start, batch in batches:
-            pan, packed, carry = self._block_step(p, batch, block_start,
-                                                  carry)
+            with profiling.span("infer.dispatch"):
+                pan, packed, carry = self._block_step(p, batch, block_start,
+                                                      carry)
+                host = self._to_host(packed)
             self.last_dispatch_count += 1
             if self._cost_pass is None \
                     or p.pixels > self._cost_pass.pixels:
@@ -381,8 +385,7 @@ class FusedStackEngine:
             z_indices = [block_start + j - mid
                          if 0 <= block_start + j - mid < p.n else None
                          for j in range(p.B)]
-            inflight.append((z_indices, _DeviceMaps(pan),
-                             self._to_host(packed)))
+            inflight.append((z_indices, _DeviceMaps(pan), host))
             while len(inflight) > depth:
                 yield inflight.popleft()
         while inflight:
@@ -418,32 +421,37 @@ class FusedStackEngine:
         thread reads and pads each block on the host (pinned), and the
         block uploads when it runs."""
         n = len(dataset)
-        ex0 = dataset[0]
-        img0 = np.asarray(ex0["image"])
-        if self.device_norms is None and img0.dtype != np.float32:
-            img0 = img0.astype(np.float32)
         pf = self.padding_factor
-        p = self._prepare((img0.shape[0] + (-img0.shape[0]) % pf,
-                           img0.shape[1] + (-img0.shape[1]) % pf),
-                          tuple(int(s) for s in ex0["size"]), n, upsampling)
+        with profiling.span("infer.setup"):
+            ex0 = dataset[0]
+            img0 = np.asarray(ex0["image"])
+            if self.device_norms is None and img0.dtype != np.float32:
+                img0 = img0.astype(np.float32)
+            p = self._prepare((img0.shape[0] + (-img0.shape[0]) % pf,
+                               img0.shape[1] + (-img0.shape[1]) % pf),
+                              tuple(int(s) for s in ex0["size"]), n,
+                              upsampling)
+        call = profiling.current_call()
 
         def load_block(block_start):
             """Read + pad one block of slices on the prefetch thread."""
-            images = []
-            for src in range(block_start, block_start + p.B):
-                if src < n:
-                    img = np.asarray((dataset[src] if src else ex0)["image"])
-                    if self.device_norms is None \
-                            and img.dtype != np.float32:
-                        img = img.astype(np.float32)
-                else:
-                    img = np.zeros_like(img0)
-                images.append(img)
-            batch, _ = factor_pad(np.stack(images), pf)
-            batch = torch.from_numpy(np.ascontiguousarray(batch))
-            # async uploads need pinned buffers
-            return batch.pin_memory() if self.device.type == "cuda" \
-                else batch
+            with profiling.span("infer.load", call):
+                images = []
+                for src in range(block_start, block_start + p.B):
+                    if src < n:
+                        img = np.asarray(
+                            (dataset[src] if src else ex0)["image"])
+                        if self.device_norms is None \
+                                and img.dtype != np.float32:
+                            img = img.astype(np.float32)
+                    else:
+                        img = np.zeros_like(img0)
+                    images.append(img)
+                batch, _ = factor_pad(np.stack(images), pf)
+                batch = torch.from_numpy(np.ascontiguousarray(batch))
+                # async uploads need pinned buffers
+                return batch.pin_memory() if self.device.type == "cuda" \
+                    else batch
 
         def batches(pool):
             starts = iter(range(0, n + self.mid, p.B))
@@ -452,13 +460,15 @@ class FusedStackEngine:
                                            max(self.pipeline_depth, 0) + 2))
             while queue:
                 block_start, fut = queue.popleft()
-                batch = fut.result()
+                with profiling.span("infer.load_wait"):
+                    batch = fut.result()
                 nxt = next(starts, None)
                 if nxt is not None:
                     queue.append((nxt, pool.submit(load_block, nxt)))
                 yield block_start, batch
 
-        pool = ThreadPoolExecutor(max_workers=1)
+        pool = ThreadPoolExecutor(max_workers=1,
+                                  thread_name_prefix="infer-load")
         try:
             yield from self._blocks(p, batches(pool))
         finally:
@@ -498,7 +508,8 @@ class FusedStackEngine:
         n, oh, ow = volume.shape
         pf = self.padding_factor
         ph, pw = oh + (-oh) % pf, ow + (-ow) % pf
-        p = self._prepare((ph, pw), (oh, ow), n, upsampling)
+        with profiling.span("infer.setup"):
+            p = self._prepare((ph, pw), (oh, ow), n, upsampling)
         B = p.B
         if chunk_slices is None:
             per_slice = oh * ow * (volume.element_size() if on_device

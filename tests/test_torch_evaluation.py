@@ -21,7 +21,6 @@ import torch
 from empanada_tpu import evaluation as j_evaluation
 from empanada_tpu.data.synthetic import synthetic_em_volume as j_volume
 from empanada_tpu.evaluation import evaluator as j_eval
-from empanada_tpu.utils import profiling as j_profiling
 from empanada_torch import evaluation as t_evaluation
 from empanada_torch.data.synthetic import synthetic_em_volume
 from empanada_torch.evaluation import evaluator as t_eval
@@ -203,24 +202,25 @@ def test_full_recovery_at_product_density():
 
 
 def test_stage_timer_and_trace(tmp_path):
-    timer, j_timer = profiling.StageTimer(), j_profiling.StageTimer()
-    for t in (timer, j_timer):
+    """The recorder's summary (seconds and count a name), and the
+    exporter: trace.json and beside it the spans recorded while it was
+    open; nothing written when it is disabled."""
+    with profiling.recording() as spans:
         for _ in range(3):
-            with t.stage("forward"):
+            with profiling.span("forward"):
                 pass
-    assert set(timer.summary()) == set(j_timer.summary()) == {"forward"}
-    assert timer.summary()["forward"]["count"] == 3
-    meter, j_meter = profiling.ProgressMeter("loss"), \
-        j_profiling.ProgressMeter("loss")
-    for m in (meter, j_meter):
-        m.update(2.0, n=2)
-        m.update(5.0)
-    assert str(meter) == str(j_meter) == "loss 5.000 (3.000)"
+    summary = spans.summary()
+    assert set(summary) == {"forward"} and summary["forward"]["count"] == 3
+    assert summary["forward"]["total_s"] == pytest.approx(sum(
+        (s.end_ns - s.start_ns) / 1e9 for s in spans))
     with profiling.trace(str(tmp_path / "trace")):
-        torch.ones(4).add_(1)
+        with profiling.span("forward"):
+            torch.ones(4).add_(1)
     assert json.loads((tmp_path / "trace" / "trace.json").read_text())
+    written = json.loads((tmp_path / "trace" / "spans.json").read_text())
+    assert [s["name"] for s in written["spans"]] == ["forward"]
     with profiling.trace(str(tmp_path / "off"), enabled=False):
-        pass
+        assert profiling.span("forward") is profiling.span("other")
     assert not (tmp_path / "off").exists()
 
 

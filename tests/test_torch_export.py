@@ -329,7 +329,10 @@ def test_recipe_defaults_lose_to_explicit_flags(tmp_path):
     ]
     for argv in argvs:
         got = vars(infer3d.parse_args(argv))
+        # -trace-dir is the port's own flag (the operator's trace)
+        assert got.pop("trace_dir") is None
         assert got == vars(jax_infer3d.parse_args(argv)), argv
+    assert infer3d.parse_args(argvs[0] + ["-trace-dir", "t"]).trace_dir == "t"
     args = infer3d.parse_args(argvs[1])
     assert (args.qlen, args.min_size, args.seg_thr, args.one_view) == \
         (5, 200, 0.4, True)
