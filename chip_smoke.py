@@ -1317,7 +1317,8 @@ def phase_breakdown(model, vol):
         table = torch.tensor([False, True], device="cuda")
         post_ms = cuda_ms(lambda: engine._postprocess(
             sem, ctr, off, 2, 1, engine._auto_max_runs(512, 512),
-            (512, 512), table), reps=5, warmup=2)
+            torch.tensor([512, 512], dtype=torch.int32, device="cuda"),
+            table), reps=5, warmup=2)
     print(f"breakdown: one block (8 x 512^2): model forward "
           f"{fwd_ms:.3f} ms, postprocess {post_ms:.3f} ms")
 

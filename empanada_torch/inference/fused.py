@@ -23,6 +23,17 @@ median for mid <= z < n - mid and its raw map at the stack edges.
 Maps and run coordinates stay on the factor-padded grid; the header
 carries the true crop for the host rebase (rle.unpack_packed_runs).
 
+On a CUDA device without a mesh, the block step is one CUDA graph,
+captured on the first block of a shape and replayed for every block of
+every pass with that shape: one launch a block instead of a thousand.
+What changes between blocks reaches the graph through static buffers:
+the batch, the scalars (block_start, n, oh, ow) on the device, and the
+median window's carry, which the step rewrites in place. The graphs
+are kept per module (an engine is built per call), keyed on everything
+the capture bakes in. On the CPU, with a mesh, where the capture
+raised, or while another pass holds the graph, the same step runs
+eagerly.
+
 With ``mesh=`` (``parallel.create_mesh``) each block is split into
 ``mesh.size`` contiguous chunks, each device runs its own replica of
 the model on its chunk (the launches are asynchronous, so one host
@@ -33,8 +44,11 @@ grouping kernel and the run extraction run exactly as without a mesh.
 
 from __future__ import annotations
 
+import contextlib
 import itertools
 import math
+import threading
+import weakref
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 from types import SimpleNamespace
@@ -44,6 +58,7 @@ import torch
 import torch.nn.functional as F
 
 from empanada_torch.device import resolve_device
+from empanada_torch.ops import group
 from empanada_torch.ops.postprocess import (
     find_instance_centers,
     group_pixels,
@@ -64,6 +79,11 @@ __all__ = ["FusedStackEngine", "CHUNK_BYTES"]
 # the resident path's default chunk: whole blocks of at most this many
 # bytes of raw volume on the device (two while the next one uploads)
 CHUNK_BYTES = 2 << 30
+
+# captured block steps, {module: {key: graph, or None where the capture
+# raised}}: an engine is built per call, the module outlives it
+_GRAPHS = weakref.WeakKeyDictionary()
+_GRAPHS_LOCK = threading.Lock()
 
 
 class _HostPacked:
@@ -203,20 +223,17 @@ class FusedStackEngine:
         std = float(norms["std"] if isinstance(norms, dict) else norms[1])
         return mean, std
 
-    def _pad_mask(self, crop, pad_shape, upsampling):
-        """(ph, pw) float mask of the true image area (None when the
-        slice needs no padding)."""
-        oh, ow = crop
+    @staticmethod
+    def _pad_mask(crop, pad_shape, upsampling):
+        """(ph, pw) float mask of the true image area: ``crop`` is the
+        true (oh, ow) at full resolution, a (2,) int32 tensor."""
         ph, pw = pad_shape
-        ny = -(-oh // upsampling)
-        nx = -(-ow // upsampling)
-        if ny >= ph and nx >= pw:
-            return None
-        ring = torch.zeros((ph, pw), dtype=torch.float32)
-        ring[:min(ny, ph), :min(nx, pw)] = 1.0
-        return ring.to(self.device)
+        ny, nx = (crop + (upsampling - 1)) // upsampling
+        rows = torch.arange(ph, device=crop.device) < ny
+        cols = torch.arange(pw, device=crop.device) < nx
+        return (rows[:, None] & cols[None, :]).float()
 
-    def _forward(self, batch, render_steps, norms, pad_masks):
+    def _forward(self, batch, render_steps, norms, pad_mask):
         """(B, ph, pw) host batch -> float32 probabilities (B, C, H, W),
         centers (B, h4, w4) and offsets (B, h4, w4, 2) on the engine's
         device. The model takes float32 images and computes in its own
@@ -225,12 +242,11 @@ class FusedStackEngine:
         chunks = shard_batch(batch, self.mesh) if self.mesh is not None \
             else [batch.to(self.device, non_blocking=True)]
         outs = []
-        for module, x, mask in zip(self.replicas, chunks, pad_masks):
+        for module, x in zip(self.replicas, chunks):
             x = x[:, None].float()
             if norms is not None:
                 x = (x / 255.0 - norms[0]) / norms[1]
-                if mask is not None:
-                    x = x * mask
+                x = x * pad_mask.to(x.device, non_blocking=True)
             out = module(x, render_steps=render_steps,
                          interpolate_ins=not self.coarse_boundaries)
             # the probabilities in the model's dtype, then float32 (the
@@ -246,7 +262,8 @@ class FusedStackEngine:
     def _postprocess(self, sem_prob, ctr, off, num_classes, upsampling,
                      max_runs, crop, table):
         """(B, C, H, W) probs, (B, h4, w4) centers, (B, h4, w4, 2)
-        offsets -> (B, H, W) pan maps and (B, 1+max_runs, 3) packed."""
+        offsets -> (B, H, W) pan maps and (B, 1+max_runs, 3) packed.
+        ``crop``: the true (oh, ow), a (2,) int32 tensor on the device."""
         step = 4 if self.coarse_boundaries else 1
         scale = step * upsampling
         oh, ow = crop
@@ -266,14 +283,13 @@ class FusedStackEngine:
                 sem, ins, self.label_divisor, table, self.stuff_area,
                 self.void_label, self.max_centers, num_classes)
         b, H, W = pan.shape
-        if (H, W) != (oh, ow):
-            # stay on the padded grid; zero the margin so it adds no runs
-            rows = torch.arange(H, device=pan.device)[:, None] < oh
-            cols = torch.arange(W, device=pan.device)[None, :] < ow
-            pan = torch.where(rows & cols, pan, torch.zeros_like(pan))
+        # stay on the padded grid; zero the margin so it adds no runs
+        rows = torch.arange(H, device=pan.device)[:, None] < oh
+        cols = torch.arange(W, device=pan.device)[None, :] < ow
+        pan = torch.where(rows & cols, pan, torch.zeros_like(pan))
         starts, ends, values, n_runs = extract_fg_runs(pan, max_runs)
-        header = torch.stack([n_runs, torch.full_like(n_runs, oh),
-                              torch.full_like(n_runs, ow)], dim=1)
+        header = torch.stack([n_runs, oh.expand_as(n_runs),
+                              ow.expand_as(n_runs)], dim=1)
         packed = torch.cat([header[:, None],
                             torch.stack([starts, ends, values], dim=-1)],
                            dim=1)
@@ -292,7 +308,6 @@ class FusedStackEngine:
 
     # -----------------------------------------------------------------
 
-
     def _prepare(self, pad_shape, crop, n, upsampling):
         """The constants of one pass over n slices of true size ``crop``,
         padded to ``pad_shape`` (sem resolution ``upsampling`` times
@@ -304,9 +319,6 @@ class FusedStackEngine:
             self._num_classes = max(
                 int(getattr(self.module, "num_classes", 1)),
                 (max(self.thing_list) + 1) if self.thing_list else 1, 2)
-        norms = self._norms()
-        pad_mask = (self._pad_mask(crop, pad_shape, upsampling)
-                    if norms is not None else None)
         return SimpleNamespace(
             n=n, B=B, pad_shape=pad_shape, crop=crop, upsampling=upsampling,
             pixels=B * ph * pw * upsampling ** 2,
@@ -314,9 +326,7 @@ class FusedStackEngine:
             num_classes=self._num_classes,
             max_runs=self.max_runs or self._auto_max_runs(
                 ph * upsampling, pw * upsampling),
-            norms=norms,
-            pad_masks=[None if pad_mask is None else pad_mask.to(d)
-                       for d in self.devices],
+            norms=self._norms(),
             table=thing_table(self.thing_list, self._num_classes,
                               self.device))
 
@@ -333,16 +343,38 @@ class FusedStackEngine:
                 torch.zeros((self.mid, h4, w4), device=dev),
                 torch.zeros((self.mid, h4, w4, 2), device=dev))
 
-    def _block_step(self, p, batch, block_start, carry):
+    def _buffers(self, p):
+        """A pass's device state: the scalars (block_start, n, oh, ow),
+        int32, and the median window's carry."""
+        return SimpleNamespace(
+            scalars=torch.zeros(4, dtype=torch.int32, device=self.device),
+            carry=self._zero_carry(p))
+
+    @staticmethod
+    def _start_pass(bufs, p):
+        """Zero the carry and set n and the crop, on the device's stream
+        and without a copy from the host."""
+        for t in bufs.carry:
+            t.zero_()
+        for i, v in enumerate((p.n,) + tuple(p.crop), start=1):
+            bufs.scalars[i].fill_(v)
+
+    def _block_step(self, p, batch, scalars, carry):
         """One block on the device: the (B, ph, pw) batch of slices
         block_start .. block_start + B - 1 -> forward -> z-median window
         (the previous blocks' maps come in ``carry``) -> postprocess ->
-        (pan maps, packed runs, next carry). The block emits slice z =
+        (pan maps, packed runs); ``carry`` is rewritten in place for the
+        next block. ``scalars``: (block_start, n, oh, ow), an int32
+        tensor on the device, so that neither a value nor a branch of the
+        step depends on them on the host. The block emits slice z =
         block_start + j - mid: its window median for mid <= z < n - mid,
         its raw map at the stack edges."""
         ks, mid, B = self.ks, self.mid, p.B
+        block_start, n, crop = scalars[0], scalars[1], scalars[2:]
+        pad_mask = (self._pad_mask(crop, p.pad_shape, p.upsampling)
+                    if p.norms is not None else None)
         sem, ctr, off = self._forward(batch, p.render_steps, p.norms,
-                                      p.pad_masks)
+                                      pad_mask)
         carry_sem, carry_ctr, carry_off = carry
         allsem = torch.cat([carry_sem, sem], dim=0)
         allctr = torch.cat([carry_ctr, ctr], dim=0)
@@ -351,17 +383,140 @@ class FusedStackEngine:
         win = allsem.unfold(0, ks, 1)[:B]      # (B, C, H, W, ks)
         med = median_small(win, dim=-1)
         raw = allsem[mid:mid + B]
-        z = torch.arange(block_start - mid, block_start - mid + B,
-                         device=allsem.device)
-        use_median = (z >= mid) & (z < p.n - mid)
+        z = torch.arange(B, dtype=torch.int32, device=allsem.device) \
+            + (block_start - mid)
+        use_median = (z >= mid) & (z < n - mid)
         emit_sem = torch.where(use_median[:, None, None, None], med, raw)
         pan, packed = self._postprocess(
             emit_sem, allctr[:B], alloff[:B].contiguous(), p.num_classes,
-            p.upsampling, p.max_runs, p.crop, p.table)
-        carry = (allsem[allsem.shape[0] - (ks - 1):],
-                 allctr[allctr.shape[0] - mid:],
-                 alloff[alloff.shape[0] - mid:])
-        return pan, packed, carry
+            p.upsampling, p.max_runs, crop, p.table)
+        carry_sem.copy_(allsem[B:])
+        carry_ctr.copy_(allctr[B:])
+        carry_off.copy_(alloff[B:])
+        return pan, packed
+
+    # -----------------------------------------------------------------
+
+    def _graph_key(self, p, batch):
+        """Everything a captured step bakes in: the pass's shapes and
+        dtypes, the engine's settings, and the module's tensors by
+        address, shape and dtype, so that a module whose tensors were
+        replaced is captured anew (values changed in place are read by
+        the replays as they are)."""
+        tensors = tuple((t.data_ptr(), tuple(t.shape), t.dtype)
+                        for t in itertools.chain(self.module.parameters(),
+                                                 self.module.buffers()))
+        return (self.device, p.pad_shape, p.B, p.upsampling, batch.dtype,
+                p.norms, p.num_classes, p.max_runs, tuple(self.thing_list),
+                self.label_divisor, self.stuff_area, self.void_label,
+                self.nms_threshold, self.nms_kernel, self.confidence_thr,
+                self.ks, self.coarse_boundaries, self.max_centers,
+                getattr(self.module, "num_classes", 1), tensors)
+
+    def _claim_graph(self, p, batch):
+        """The captured step for this pass, held until the pass ends
+        (captured here on the key's first pass); None where the pass runs
+        eagerly: the key's capture raised, or another open pass holds
+        its graph. Graphs of the module's replaced tensors are dropped."""
+        key = self._graph_key(p, batch)
+        with _GRAPHS_LOCK:
+            graphs = _GRAPHS.setdefault(self.module, {})
+            for stale in [k for k in graphs if k[-1] != key[-1]]:
+                del graphs[stale]
+            if key not in graphs:
+                graphs[key] = self._capture(p, batch)
+            graph = graphs[key]
+            if graph is None or graph.busy:
+                return None
+            graph.busy = True
+            return graph
+
+    def _capture(self, p, batch):
+        """Capture the block step of ``p`` as a CUDA graph with its own
+        memory pool, on a side stream after one eager warm-up run (its
+        grouping launch is real and counts); None where the capture
+        raises, as it does for a module that waits for the device."""
+        dev = self.device
+        profiling.count("infer.graph_capture")
+        with profiling.span("infer.capture"):
+            graph = self._buffers(p)
+            graph.batch = torch.zeros(batch.shape, dtype=batch.dtype,
+                                      device=dev)
+            graph.table = p.table  # read by the replays
+            self._start_pass(graph, p)
+            side = torch.cuda.Stream(dev)
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side):
+                self._block_step(p, graph.batch, graph.scalars, graph.carry)
+            torch.cuda.synchronize(dev)
+            graph.graph = torch.cuda.CUDAGraph()
+            pool = torch.cuda.graph_pool_handle()
+            before = group.LAUNCHES["group_pixels"]
+            try:
+                # thread_local: the other threads (prefetch, decode, the
+                # host half) keep using the device meanwhile
+                with torch.cuda.stream(side):
+                    graph.graph.capture_begin(
+                        pool=pool, capture_error_mode="thread_local")
+                    try:
+                        graph.pan, graph.packed = self._block_step(
+                            p, graph.batch, graph.scalars, graph.carry)
+                    finally:
+                        graph.graph.capture_end()
+            except RuntimeError:
+                # a capture that raised leaves the allocator sending the
+                # pool's allocations to it (torch 2.11); end that and
+                # free the pool
+                with contextlib.suppress(RuntimeError):
+                    torch._C._cuda_endAllocateToPool(dev.index, pool)
+                torch._C._cuda_releasePool(dev.index, pool)
+                return None
+            finally:
+                # the capture recorded the grouping launches and ran none
+                graph.launches = group.LAUNCHES["group_pixels"] - before
+                group.count_launches(dev.index, -graph.launches)
+            torch.cuda.current_stream(dev).wait_stream(side)
+        graph.busy = False
+        return graph
+
+    @contextlib.contextmanager
+    def _pass(self, p):
+        """The block step of one pass, (block_start, batch) -> (pan,
+        packed), with the carry zeroed at its start. On a CUDA device
+        without a mesh it replays the pass's graph (``_claim_graph``):
+        the batch is copied into the graph's own, and pan comes out as a
+        copy, so that a block in flight keeps its maps; packed is the
+        graph's, valid until the next step (``_to_host``'s copy, queued
+        after the replay, goes first). Otherwise the step runs eagerly.
+        Counters: ``infer.graph_replay`` a replayed block,
+        ``infer.graph_eager`` a block run eagerly on a CUDA device."""
+        cuda = self.device.type == "cuda"
+        graph = bufs = None
+
+        def step(block_start, batch):
+            nonlocal graph, bufs
+            if bufs is None:
+                if cuda and self.mesh is None:
+                    graph = self._claim_graph(p, batch)
+                bufs = graph if graph is not None else self._buffers(p)
+                self._start_pass(bufs, p)
+            bufs.scalars[0].fill_(block_start)
+            if graph is None:
+                if cuda:
+                    profiling.count("infer.graph_eager")
+                return self._block_step(p, batch, bufs.scalars, bufs.carry)
+            graph.batch.copy_(batch, non_blocking=True)
+            graph.graph.replay()
+            profiling.count("infer.graph_replay")
+            group.count_launches(self.device.index, graph.launches)
+            return graph.pan.clone(), graph.packed
+
+        try:
+            yield step
+        finally:
+            if graph is not None:
+                with _GRAPHS_LOCK:
+                    graph.busy = False
 
     def _blocks(self, p, batches):
         """Run one pass's blocks in order and yield (z_indices, pan maps,
@@ -369,27 +524,26 @@ class FusedStackEngine:
         ``batches`` yields (block_start, (B, ph, pw) batch) for the block
         starts range(0, n + mid, B)."""
         mid = self.mid
-        carry = self._zero_carry(p)
         depth = max(self.pipeline_depth, 0)
         inflight = deque()
         self.last_dispatch_count = 0
-        for block_start, batch in batches:
-            with profiling.span("infer.dispatch"):
-                pan, packed, carry = self._block_step(p, batch, block_start,
-                                                      carry)
-                host = self._to_host(packed)
-            self.last_dispatch_count += 1
-            if self._cost_pass is None \
-                    or p.pixels > self._cost_pass.pixels:
-                self._cost_pass = p
-            z_indices = [block_start + j - mid
-                         if 0 <= block_start + j - mid < p.n else None
-                         for j in range(p.B)]
-            inflight.append((z_indices, _DeviceMaps(pan), host))
-            while len(inflight) > depth:
+        with self._pass(p) as step:
+            for block_start, batch in batches:
+                with profiling.span("infer.dispatch"):
+                    pan, packed = step(block_start, batch)
+                    host = self._to_host(packed)
+                self.last_dispatch_count += 1
+                if self._cost_pass is None \
+                        or p.pixels > self._cost_pass.pixels:
+                    self._cost_pass = p
+                z_indices = [block_start + j - mid
+                             if 0 <= block_start + j - mid < p.n else None
+                             for j in range(p.B)]
+                inflight.append((z_indices, _DeviceMaps(pan), host))
+                while len(inflight) > depth:
+                    yield inflight.popleft()
+            while inflight:
                 yield inflight.popleft()
-        while inflight:
-            yield inflight.popleft()
 
     def infer_stack(self, dataset, upsampling=1):
         """Per-slice view of ``infer_blocks``: yields (z, pan_slice,
@@ -576,6 +730,9 @@ class FusedStackEngine:
             return None
         batch = torch.zeros((p.B,) + p.pad_shape, device=self.device)
         counter = FlopCounterMode(display=False)
-        with torch.inference_mode(), counter:
-            self._block_step(p, batch, 0, self._zero_carry(p))
+        with torch.inference_mode():
+            bufs = self._buffers(p)
+            self._start_pass(bufs, p)
+            with counter:  # eager, never a graph: the counter sees each op
+                self._block_step(p, batch, bufs.scalars, bufs.carry)
         return {"flops": counter.get_total_flops()}

@@ -24,7 +24,7 @@ import torch
 
 __all__ = ["group_pixels_batched", "group_pixels_plain", "check_inputs",
            "tile_stats", "LAUNCHES", "LAUNCHES_BY_CARD", "reset_launches",
-           "SLAB_ELEMENTS"]
+           "count_launches", "SLAB_ELEMENTS"]
 
 # launches of the CUDA kernel since the last reset_launches(), in all and
 # by card index
@@ -43,6 +43,13 @@ def reset_launches():
     for key in LAUNCHES:
         LAUNCHES[key] = 0
     LAUNCHES_BY_CARD.clear()
+
+
+def count_launches(card, n=1):
+    """Add ``n`` launches on card index ``card``: a replayed CUDA graph
+    adds the launches its capture recorded."""
+    LAUNCHES["group_pixels"] += n
+    LAUNCHES_BY_CARD[card] = LAUNCHES_BY_CARD.get(card, 0) + n
 
 
 def group_pixels_plain(centers, valid, offsets, step: float = 1.0,
@@ -144,8 +151,7 @@ def _launch(centers, valid, offsets, step, stats=None):
     if rc != 0:
         raise RuntimeError(f"group_pixels kernel launch failed: CUDA error "
                            f"{rc}")
-    LAUNCHES["group_pixels"] += 1
-    LAUNCHES_BY_CARD[dev.index] = LAUNCHES_BY_CARD.get(dev.index, 0) + 1
+    count_launches(dev.index)
     return out
 
 
