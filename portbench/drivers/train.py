@@ -28,10 +28,11 @@ from portbench import check, gen, weights
 from portbench.flops import train_step_flops
 from portbench.reference import models as ref_models
 from portbench.reference.train import run_steps
+from portbench.spec import HERE, load_reference
 from portbench.trace import WINDOW, Tracer
 
-__all__ = ["recipe", "make_weights", "program_steps", "reference_steps",
-           "run", "Faults"]
+__all__ = ["recipe", "state_shapes", "make_weights", "program_steps",
+           "reference_steps", "run", "readings", "Faults"]
 
 def recipe(cfg, traffic):
     """The program's recipe dict for this cell."""
@@ -43,15 +44,19 @@ def recipe(cfg, traffic):
     return r
 
 
-def state_shapes(cfg):
-    model = ref_models.build(cfg, "meta")
+def state_shapes(cfg, base=HERE):
+    model = ref_models.build(cfg, "meta", base=base)
     return {k: (tuple(v.shape), v.dtype) for k, v in
             model.state_dict().items()}
 
 
-def make_weights(cfg, seed, device):
-    return weights.make_state(state_shapes(cfg), gen.sub_seed(seed, "weights"),
-                              device, cfg["recipe"]["MODEL"]["num_fc"])
+def make_weights(cfg, seed, device, base=HERE):
+    """The recipe's initial weights from the seed, by ``weights.RULES``
+    after the ``INIT_RULES`` of the configuration's reference module."""
+    rules = getattr(load_reference(cfg, base), "INIT_RULES", ())
+    return weights.make_state(state_shapes(cfg, base),
+                              gen.sub_seed(seed, "weights"), device,
+                              cfg["recipe"]["MODEL"]["num_fc"], rules)
 
 
 def _norms(named):
@@ -249,3 +254,38 @@ def run(cell, seed, seconds, trace, device, t_start, faults=None):
                 "dtype": cell.config["recipe"]["MODEL"].get("dtype")},
         "memory_peak_bytes": peak,
     }
+
+
+def readings(cell, seeds, control_seeds, device, emit, witness_seeds=()):
+    """Calibration readings (``portbench.calibrate``): for each seed the
+    program's first ``check_steps`` steps against the plain reference's
+    (``program``); on the control seeds also the reference in float8
+    (``control``) and on the first half of each batch's rows
+    (``half_batch``) against it. ``witness_seeds`` is not read."""
+    traffic = cell.traffic
+    steps = traffic["check_steps"]
+    for seed in seeds:
+        t0 = time.perf_counter()
+        state = setup(cell, seed, device)
+        pool, prog, rec = state["pool"], state["program"], state["recipe"]
+        del state
+        gc.collect()
+        torch.cuda.empty_cache()
+        ref = reference_steps(cell.config, rec, traffic, pool, seed, device,
+                              steps)
+        numbers, where = check.train_numbers(prog, ref)
+        emit({"kind": "program", "seed": seed, "numbers": numbers,
+              "where": where, "loss": prog["loss"], "ref_loss": ref["loss"],
+              "seconds": time.perf_counter() - t0})
+        if seed in control_seeds:
+            half = slice(0, traffic["batch"] // 2)
+            for kind, kw in (("control", {"precision": "fp8"}),
+                             ("half_batch", {"rows": half})):
+                other = reference_steps(cell.config, rec, traffic, pool,
+                                        seed, device, steps, **kw)
+                numbers, where = check.train_numbers(other, ref)
+                emit({"kind": kind, "seed": seed, "numbers": numbers,
+                      "where": where, "loss": other["loss"]})
+        del pool
+        gc.collect()
+        torch.cuda.empty_cache()

@@ -32,7 +32,7 @@ from portbench.weights import bench_state
 
 __all__ = ["settings", "bench_weights", "program_model", "run_volume",
            "window", "reference_answer", "volume_flops", "k1_bytes", "run",
-           "drop_half", "merge_pairs"]
+           "readings", "drop_half", "merge_pairs"]
 
 
 def settings(traffic):
@@ -273,3 +273,54 @@ def run(cell, seed, seconds, trace, device, t_start):
                 "fill_s": fill_s / n},
         "memory_peak_bytes": peak,
     }
+
+
+def readings(cell, seeds, control_seeds, device, emit, witness_seeds=()):
+    """Calibration readings (``portbench.calibrate``): for each seed the
+    program's answer for the seed's volume against the plain reference's
+    (``program``); on the control seeds also the reference in float8
+    (``control``) and the program's instances altered (``drop_half``,
+    ``merge_pairs``) against it; on the witness seeds the program in
+    float32 (``program_float32``)."""
+    from empanada_torch.inference.patterns import fill_volume
+
+    cfg, s = cell.config, settings(cell.traffic)
+    model = program_model(cfg, bench_weights(cfg), device)
+    kw = program_kwargs(s, device)
+
+    def numbers(got, want_probs):
+        return ref_infer.compare_labels(got, want_probs[0],
+                                        probs=want_probs[1],
+                                        thr=s["seg_thr"])
+
+    for seed in seeds:
+        t0 = time.perf_counter()
+        vol, _ = gen.em_volume(cell.traffic["volume"], seed)
+        out, inst, _, _ = run_volume(model, vol, kw, Tracer(False))
+        t1 = time.perf_counter()
+        ref = reference_answer(cfg, vol, s, device)
+        emit({"kind": "program", "seed": seed,
+              "numbers": numbers(out, ref), "instances": len(inst),
+              "ref_instances": int(ref[0].max()), "program_s": t1 - t0,
+              "reference_s": time.perf_counter() - t1})
+        if seed in control_seeds:
+            fp8 = reference_answer(cfg, vol, s, device, "fp8")[0]
+            emit({"kind": "control", "seed": seed,
+                  "numbers": numbers(fp8, ref), "instances": int(fp8.max())})
+            for fault in (drop_half, merge_pairs):
+                bad = np.zeros(vol.shape, np.uint32)
+                fill_volume(bad, fault(inst))
+                emit({"kind": fault.__name__, "seed": seed,
+                      "numbers": numbers(bad, ref)})
+        if seed in witness_seeds:
+            # the program in float32: what the reference and the program
+            # differ by apart from the configuration's bfloat16
+            cfg32 = dict(cfg, recipe=dict(cfg["recipe"], MODEL=dict(
+                cfg["recipe"]["MODEL"], dtype="float32")))
+            m32 = program_model(cfg32, bench_weights(cfg), device)
+            out32, _, _, _ = run_volume(m32, vol, kw, Tracer(False))
+            del m32
+            emit({"kind": "program_float32", "seed": seed,
+                  "numbers": numbers(out32, ref)})
+        gc.collect()
+        torch.cuda.empty_cache()

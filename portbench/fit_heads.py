@@ -38,7 +38,8 @@ import torch
 from portbench import gen
 from portbench.reference import models as ref_models
 from portbench.spec import HERE
-from portbench.weights import BENCH_HEADS, bench_backbone, fingerprint
+from portbench.weights import (BENCH_HEADS, bench_backbone, fingerprint,
+                               head_keys)
 
 __all__ = ["fit_set", "head_targets", "ridge", "features", "fit", "main"]
 
@@ -167,7 +168,8 @@ def fit(cfg, device, size=SIZE):
         off_kernel=w_off[None, None], off_bias=np.zeros(2, np.float32),
         pr_kernel=w_pr, pr_bias=np.zeros(classes, np.float32),
         norms=np.array(NORMS, np.float32),
-        backbone_fingerprint=np.array(fingerprint(state, num_fc)))
+        backbone_fingerprint=np.array(fingerprint(state,
+                                                  head_keys(num_fc))))
     return heads, report
 
 

@@ -6,7 +6,9 @@ Panoptic-DeepLab heads, PointRend) and Panoptic-DeepLab-PointRend
 written from their published descriptions with ``torch.nn`` layers and
 ``torch.nn.functional`` alone. Sizes come from the configuration file;
 children carry the names of the measured program's state dict, so one
-state dict loads into both.
+state dict loads into both. ``build`` finds a configuration's
+architecture in the ``ARCHS`` of the reference module that the
+configuration names (``spec.load_reference``); this one by default.
 
 Train mode (batch statistics) as the training cells run it, with
 PointRend's point coordinates from the caller; and MitoNet's inference
@@ -25,9 +27,13 @@ gradients of those outputs to e5m2, each under a per-tensor scale.
 
 from __future__ import annotations
 
+import inspect
+
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from portbench.spec import HERE, load_reference
 
 __all__ = ["build", "set_precision", "MitoNet", "PanopticDeepLabPR"]
 
@@ -604,11 +610,15 @@ class PanopticDeepLabPR(nn.Module):
 ARCHS = {"PanopticBiFPNPR": MitoNet, "PanopticDeepLabPR": PanopticDeepLabPR}
 
 
-def build(cfg, device="cpu", mask_dtype=torch.float32):
+def build(cfg, device="cpu", mask_dtype=torch.float32, base=HERE):
     """The configuration's reference model on ``device`` in train mode
-    (parameters uninitialized: load a state dict)."""
+    (parameters uninitialized: load a state dict): the class that the
+    ``ARCHS`` of the configuration's reference module (``spec``) gives
+    its architecture, with ``mask_dtype`` where the class takes one."""
     arch = cfg["recipe"]["MODEL"]["arch"]
-    kw = {"mask_dtype": mask_dtype} if arch == "PanopticDeepLabPR" else {}
+    cls = load_reference(cfg, base).ARCHS[arch]
+    kw = {"mask_dtype": mask_dtype} \
+        if "mask_dtype" in inspect.signature(cls).parameters else {}
     with torch.device(device):
-        model = ARCHS[arch](cfg, **kw)
+        model = cls(cfg, **kw)
     return model.train()

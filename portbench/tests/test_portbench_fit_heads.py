@@ -1,14 +1,19 @@
 """The inference cells' head fit (``portbench.fit_heads``) on the CPU at a
 tiny size: the ridge solution recovers a linear map, the targets follow
 the labels, and a fit of a small MitoNet writes heads that
-``weights.bench_state`` loads into the same model."""
+``weights.bench_state`` loads into the same model. The seeded states
+that the cells run on are those of the commit before reference modules
+and named heads keys came in, bit for bit."""
 
 import copy
+import hashlib
 import json
 
 import numpy as np
+import pytest
 
 from portbench import fit_heads, weights
+from portbench.drivers import train, volume
 from portbench.drivers.train import state_shapes
 from portbench.spec import HERE
 
@@ -53,3 +58,38 @@ def test_fit_of_a_small_mitonet_loads(tmp_path, monkeypatch):
     state = weights.bench_state(state_shapes(cfg), path, num_fc)
     assert np.allclose(state["ins_xy.Conv_0.weight"].numpy()[:, :, 0, 0],
                        heads["off_kernel"][0, 0].T)
+
+
+def _state_digest(state):
+    digest = hashlib.sha256()
+    for key in sorted(state):
+        t = state[key]
+        digest.update(key.encode())
+        digest.update(str(t.dtype).encode())
+        digest.update(str(tuple(t.shape)).encode())
+        digest.update(t.detach().cpu().contiguous().numpy().tobytes())
+    return digest.hexdigest()
+
+
+# computed with this file's ``_state_digest`` at commit e1dfcf7, the
+# parent of the change that opened the reference modules and the named
+# heads keys
+PINNED = {
+    "bench_mitonet":
+        "305ac0c5dcce4ec1cf5d4de598af6ab789dc93cb3bc802ddff9e14570aab7a49",
+    "train_mitonet_tiny":
+        "940f37fdd79e7a5493f8665b18409c3a82ebd607d88f051d99a3eeb3ac958ae9",
+    "train_pdlpr":
+        "d7069d30f67eee15c49a9477ade5dffe57405bfcfd30316e5c01ea1760740c20",
+}
+
+
+@pytest.mark.parametrize("state", sorted(PINNED))
+def test_seeded_states_are_pinned(tiny, state):
+    if state == "bench_mitonet":
+        cfg = json.loads((HERE / "configs" / "mitonet.json").read_text())
+        got = volume.bench_weights(cfg)
+    else:
+        config = "mitonet" if state == "train_mitonet_tiny" else "pdlpr"
+        got = train.make_weights(tiny(config).config, 2**31 + 3, "cpu")
+    assert _state_digest(got) == PINNED[state]

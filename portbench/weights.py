@@ -8,7 +8,8 @@ Each state-dict entry takes the first rule whose pattern it matches
 convolutions, normal with std 0.001 for the heads, the ASPP and the
 Panoptic-DeepLab decoders' projections and fuses, zero biases, batch
 norm scale 1 (0 on the last batch norm of each RegNet block), running
-variance and BiFPN fusion weights 1.
+variance and BiFPN fusion weights 1. An architecture's reference module
+may add ``INIT_RULES``, consulted before these.
 """
 
 from __future__ import annotations
@@ -18,7 +19,8 @@ import re
 
 import torch
 
-__all__ = ["RULES", "rule_for", "make_state"]
+__all__ = ["RULES", "KINDS", "rule_for", "make_state", "bench_backbone",
+           "head_keys", "fingerprint", "bench_state"]
 
 HEADS = r"(semantic_head|ins_center|ins_xy)\."
 RULES = [
@@ -37,10 +39,14 @@ RULES = [
     (r"Dense_\d+\.weight$", "dense"),
     (r"weight$", "kaiming_normal"),
 ]
+KINDS = ("ones", "zeros", "head_normal", "kaiming_normal", "dense",
+         "glorot_uniform")
 
 
-def rule_for(name):
-    for pattern, rule in RULES:
+def rule_for(name, rules=()):
+    """The rule of the first pattern of ``rules``, then ``RULES``, that
+    the state-dict key ``name`` matches."""
+    for pattern, rule in (*rules, *RULES):
         if re.search(pattern, name):
             return rule
     raise KeyError(name)
@@ -51,10 +57,14 @@ def _fans(shape):
     return shape[1] * rf, shape[0] * rf
 
 
-def make_state(shapes, seed, device, num_fc):
+def make_state(shapes, seed, device, num_fc, rules=()):
     """{name: tensor} for ``shapes`` ({name: (shape, dtype)}, a model's
     state dict order) on ``device``. ``num_fc``: the PointRend MLP's
-    hidden layers (its last layer takes std 0.001)."""
+    hidden layers (its last layer takes std 0.001). ``rules``: (pattern,
+    one of ``KINDS``) pairs consulted before ``RULES``."""
+    unknown = [rule for _, rule in rules if rule not in KINDS]
+    if unknown:
+        raise ValueError(f"unknown initialisation rules {unknown}")
     floats = [n for n, (s, dt) in shapes.items() if dt.is_floating_point]
     total = sum(math.prod(shapes[n][0]) for n in floats)
     gen = torch.Generator(device).manual_seed(int(seed) % (1 << 63))
@@ -63,7 +73,7 @@ def make_state(shapes, seed, device, num_fc):
     last_dense = f"Dense_{num_fc}.weight"
     out, at = {}, 0
     for name, (shape, dtype) in shapes.items():
-        rule = rule_for(name)
+        rule = rule_for(name, rules)
         if not dtype.is_floating_point or rule in ("zeros", "ones"):
             fill = 1 if rule == "ones" else 0
             out[name] = torch.full(shape, fill, dtype=dtype, device=device)
@@ -117,20 +127,25 @@ def bench_backbone(shapes, seed=0):
     return out
 
 
-def _head_keys(state, num_fc):
-    dense = f"semantic_pr.StandardPointHead_0.Dense_{num_fc}."
+def _dense(num_fc):
+    return f"semantic_pr.StandardPointHead_0.Dense_{num_fc}."
+
+
+def head_keys(num_fc):
+    """The state-dict keys of the bench MitoNet's fitted heads."""
+    dense = _dense(num_fc)
     return [f"{h}.Conv_0.{leaf}" for h in BENCH_HEADS
             for leaf in ("weight", "bias")] + [dense + "weight",
                                                dense + "bias"]
 
 
-def fingerprint(state, num_fc):
+def fingerprint(state, skip):
     """SHA-256 over the names and float32 bytes of every floating tensor
-    but the fitted heads', in name order (the heads file records the
-    backbone's)."""
+    but those of the keys ``skip`` (the fitted heads'), in name order
+    (the heads file records the backbone's)."""
     import hashlib
 
-    skip = set(_head_keys(state, num_fc))
+    skip = set(skip)
     digest = hashlib.sha256()
     for key in sorted(state):
         t = state[key]
@@ -142,24 +157,36 @@ def fingerprint(state, num_fc):
     return digest.hexdigest()
 
 
+def _fitted(data, state, num_fc):
+    """{state key: array in torch layout} that a heads file puts in: the
+    arrays it holds under the state-dict keys they replace, and the
+    bench MitoNet's heads under their tags (``<tag>_kernel`` HWIO and
+    ``<tag>_bias`` of ``BENCH_HEADS``; ``pr_kernel`` (in, out) and
+    ``pr_bias`` of the point head's last Dense)."""
+    out = {key: value for key, value in data.items() if key in state}
+    if "pr_kernel" in data:
+        dense = _dense(num_fc)
+        out[dense + "weight"] = data["pr_kernel"].T
+        out[dense + "bias"] = data["pr_bias"]
+        for head, tag in BENCH_HEADS.items():
+            out[f"{head}.Conv_0.weight"] = \
+                data[f"{tag}_kernel"].transpose(3, 2, 0, 1)
+            out[f"{head}.Conv_0.bias"] = data[f"{tag}_bias"]
+    return out
+
+
 def bench_state(shapes, npz_path, num_fc):
-    """The bench MitoNet: ``bench_backbone`` with the fitted heads of
-    ``npz_path`` put in; raises where the file was fitted on another
-    backbone."""
+    """The inference cells' weights: ``bench_backbone`` with the fitted
+    heads of ``npz_path`` put in; raises where the file was fitted on
+    another backbone."""
     import numpy as np
 
     state = bench_backbone(shapes)
     with np.load(npz_path) as f:
         data = dict(f)
-    if str(data["backbone_fingerprint"]) != fingerprint(state, num_fc):
+    updates = _fitted(data, state, num_fc)
+    if str(data["backbone_fingerprint"]) != fingerprint(state, updates):
         raise ValueError(f"{npz_path} was not fitted on this backbone")
-    dense = f"semantic_pr.StandardPointHead_0.Dense_{num_fc}."
-    updates = {dense + "weight": data["pr_kernel"].T,
-               dense + "bias": data["pr_bias"]}
-    for head, tag in BENCH_HEADS.items():
-        updates[f"{head}.Conv_0.weight"] = \
-            data[f"{tag}_kernel"].transpose(3, 2, 0, 1)
-        updates[f"{head}.Conv_0.bias"] = data[f"{tag}_bias"]
     for key, value in updates.items():
         if tuple(state[key].shape) != value.shape:
             raise ValueError(f"{key}: fitted {value.shape}, model "
